@@ -1,0 +1,196 @@
+"""Compile a constraint system to per-type arrays.
+
+The PyTorch counterpart of ``ezpz_tpu/models/compiled.py``. Constraints
+are grouped by kernel type into ``(n_type, nvars)`` index arrays and
+``(n_type, nparams)`` parameter arrays (host numpy, exactly as the JAX
+package builds them), and evaluated on torch tensors with a leading batch
+axis: one call evaluates a whole fleet of sketches sharing the topology.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..constraints import Constraint
+from ..ops.kernels import KERNELS, KernelSpec
+
+EPSILON = 1e-4  # satisfaction tolerance, ezpz/src/lib.rs:43
+
+_NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+@dataclass(frozen=True)
+class KindBlock:
+    """All instances of one kernel type (host numpy arrays)."""
+
+    spec: KernelSpec
+    idx: np.ndarray  # (n, nvars) int32 — gather indices into x
+    par: np.ndarray  # (n, nparams) float
+    weight: np.ndarray  # (n,) float — constraint weights
+    cid: np.ndarray  # (n,) int32 — originating constraint index
+
+
+@dataclass(frozen=True)
+class CompiledSystem:
+    """A constraint system compiled to arrays.
+
+    ``n_vars`` is the length of the flat variable vector (indexed by Id).
+    Residual rows are grouped by kernel type (blocks in sorted kernel-name
+    order, instances in constraint order, then the kernel's rows).
+
+    Every evaluation method takes ``x`` of shape ``(..., n_vars)`` and an
+    optional ``pars`` override: a tuple of ``(..., n_k, np_k)`` tensors
+    aligned with ``blocks``. Without it the compile-time parameters apply.
+    """
+
+    n_vars: int
+    n_constraints: int
+    n_rows: int
+    blocks: Tuple[KindBlock, ...]
+    dtype: torch.dtype = torch.float64
+
+    def _pars(self, pars, i, like):
+        if pars is None:
+            return torch.as_tensor(self.blocks[i].par, dtype=like.dtype,
+                                   device=like.device)
+        return pars[i]
+
+    def residual_and_flags(self, x: torch.Tensor, pars=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weighted residual ``(..., n_rows)``, per-constraint degenerate
+        flags ``(..., n_constraints)`` bool)."""
+        batch = x.shape[:-1]
+        parts = []
+        deg_acc = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
+                              device=x.device)
+        for i, b in enumerate(self.blocks):
+            idx = torch.as_tensor(b.idx, dtype=torch.long, device=x.device)
+            v = x[..., idx]  # (..., nb, nv)
+            p = self._pars(pars, i, x)  # (..., nb, np)
+            res, deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
+                                 [p[..., k] for k in range(b.spec.nparams)])
+            w = torch.as_tensor(b.weight, dtype=x.dtype, device=x.device)
+            res = torch.movedim(res, 0, -1) * w[:, None]  # (..., nb, dim)
+            parts.append(res.reshape(batch + (-1,)))
+            if b.spec.can_degenerate:
+                cid = torch.as_tensor(b.cid, dtype=torch.long, device=x.device)
+                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+        if parts:
+            r = torch.cat(parts, dim=-1)
+        else:
+            r = torch.zeros(batch + (0,), dtype=x.dtype, device=x.device)
+        return r, deg_acc > 0
+
+    def satisfaction_from_residual(self, r: torch.Tensor) -> torch.Tensor:
+        """Per-constraint satisfaction from an evaluated weighted residual
+        ``(..., n_rows)``: every unweighted row ``|r| / w`` below 1e-4
+        (valid when every weight > 0). A NaN row is unsatisfied."""
+        rows_cid = np.concatenate(
+            [np.repeat(b.cid, b.spec.dim) for b in self.blocks]
+        ) if self.blocks else np.zeros((0,), np.int32)
+        rows_w = np.concatenate(
+            [np.repeat(np.asarray(b.weight, np.float64), b.spec.dim)
+             for b in self.blocks]
+        ) if self.blocks else np.zeros((0,))
+        w = torch.as_tensor(rows_w, dtype=r.dtype, device=r.device)
+        bad = ~(torch.abs(r) / w < EPSILON)
+        unsat = torch.zeros(r.shape[:-1] + (self.n_constraints,),
+                            dtype=torch.int32, device=r.device)
+        unsat.index_add_(-1, torch.as_tensor(rows_cid, dtype=torch.long,
+                                             device=r.device),
+                         bad.to(torch.int32))
+        return unsat == 0
+
+    def astype(self, dtype: torch.dtype) -> "CompiledSystem":
+        """The same topology with parameters/weights in another dtype."""
+        if dtype == self.dtype:
+            return self
+        npd = _NP_DTYPE[dtype]
+        blocks = tuple(
+            replace(b, par=b.par.astype(npd), weight=b.weight.astype(npd))
+            for b in self.blocks
+        )
+        return replace(self, blocks=blocks, dtype=dtype)
+
+
+def compile_system(
+    constraints: Sequence[Constraint],
+    n_vars: int,
+    weights: Optional[Sequence[float]] = None,
+    dtype: torch.dtype = torch.float64,
+) -> CompiledSystem:
+    """Group lowered kernel instances by type into arrays (the JAX
+    package's ``compile_system``, array for array).
+
+    ``constraints`` must already have tangency sides resolved
+    (``Constraint.set_from_initial_values``).
+    """
+    if weights is None:
+        weights = [1.0] * len(constraints)
+    npd = _NP_DTYPE[dtype]
+    by_kind: dict = {}
+    n_rows = 0
+    for cid, (c, w) in enumerate(zip(constraints, weights)):
+        for inst in c.lower():
+            spec = KERNELS[inst.kernel]
+            slot = by_kind.setdefault(inst.kernel, {"idx": [], "par": [], "w": [], "cid": []})
+            if len(inst.var_ids) != spec.nvars or len(inst.params) != spec.nparams:
+                raise ValueError(f"bad arity for {inst.kernel}: {inst}")
+            slot["idx"].append(inst.var_ids)
+            slot["par"].append(inst.params)
+            slot["w"].append(w)
+            slot["cid"].append(cid)
+            n_rows += spec.dim
+
+    blocks = []
+    for kernel_name in sorted(by_kind.keys()):
+        slot = by_kind[kernel_name]
+        spec = KERNELS[kernel_name]
+        nb = len(slot["idx"])
+        blocks.append(
+            KindBlock(
+                spec=spec,
+                idx=np.asarray(slot["idx"], dtype=np.int32).reshape(nb, spec.nvars),
+                par=np.asarray(slot["par"], dtype=np.float64).reshape(nb, spec.nparams)
+                .astype(npd),
+                weight=np.asarray(slot["w"], dtype=np.float64).astype(npd),
+                cid=np.asarray(slot["cid"], dtype=np.int32),
+            )
+        )
+
+    return CompiledSystem(
+        n_vars=n_vars,
+        n_constraints=len(constraints),
+        n_rows=n_rows,
+        blocks=tuple(blocks),
+        dtype=dtype,
+    )
+
+
+def from_reference(fields) -> CompiledSystem:
+    """The port's ``CompiledSystem`` for a JAX-package ``CompiledSystem``
+    given as plain data: a mapping with ``n_vars``, ``n_constraints``,
+    ``n_rows`` and ``blocks``, a sequence of ``(spec.name, idx, par,
+    weight, cid)`` numpy tuples. Lets one topology feed both packages."""
+    blocks = []
+    for name, idx, par, weight, cid in fields["blocks"]:
+        blocks.append(KindBlock(
+            spec=KERNELS[name],
+            idx=np.asarray(idx, dtype=np.int32),
+            par=np.asarray(par),
+            weight=np.asarray(weight),
+            cid=np.asarray(cid, dtype=np.int32),
+        ))
+    par_dtypes = {b.par.dtype for b in blocks}
+    dtype = torch.float32 if par_dtypes == {np.dtype(np.float32)} else torch.float64
+    return CompiledSystem(
+        n_vars=int(fields["n_vars"]),
+        n_constraints=int(fields["n_constraints"]),
+        n_rows=int(fields["n_rows"]),
+        blocks=tuple(blocks),
+        dtype=dtype,
+    )
