@@ -7,13 +7,21 @@ Phases (any failure exits non-zero before the result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the CUDA runtime;
    no GPU, no run;
-2. build the fused fleet kernel (``csrc/fused_fleet.cu``) with nvcc;
-3. kernel against its plain PyTorch version on the card, on every bucket
-   of every corpus fixture plus ``rect_chain(8)``: 4096 seeded
+2. build the fleet kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``)
+   with nvcc, one compiler per source, and print each instantiation's
+   registers, stack frame and spills;
+3. the fused kernel against its plain PyTorch version on the card, on every
+   bucket of every corpus fixture plus ``rect_chain(8)``: 4096 seeded
    perturbations (sigma 1e-3) of the guesses each; converged, satisfied
    and degenerate must be equal lane for lane, iterations equal on at
    least 99.9% of lanes, coordinates within 1e-6 where both converged;
-4. the main path of ``bench.py`` through the port: the
+3b. on the same 37 topologies and lanes: the coarse kernel against its
+   plain version (iterations, converged and degenerate equal lane for
+   lane, coordinates within 1e-6, bit equality reported), and the whole
+   coarse path (``BatchSolver(pallas_coarse=True, pallas_fused=False)``:
+   kernel, then the batched f64-residual refinement) against the same path
+   with the plain coarse version, as in phase 3;
+4. the fused main path of ``bench.py`` through the port: the
    ``massive_parallel_system`` fixture at 8192 copies (9.8 M one-variable
    and 4.9 M two-variable sketches) via ``Problem.from_str`` ->
    ``to_constraint_system`` -> ``build_buckets`` -> ``BatchSolver(...,
@@ -21,16 +29,28 @@ Phases (any failure exits non-zero before the result line):
    refine_trips=2).solve`` on CUDA tensors. Every lane converged and
    satisfied, the f64 residual recomputed by ``residual_and_flags`` <=
    1e-8, the kernel launched; then 5 timed reps with fresh inputs for the
-   kernel and for the plain version.
+   kernel and for the plain version;
+5. the coarse main path (``bench.py``'s ``BENCH_FUSED=0``): the same
+   fixture and copies through ``BatchSolver(..., precision="mixed",
+   pallas_coarse=True, pallas_fused=False, pallas_trips=3).solve``. The
+   same gate; the coarse kernel launched once per bucket and the fused one
+   not at all; then 5 timed reps of the path, of its coarse kernel and
+   refinement separately, and of the path with the plain coarse version.
 
-The line before the last is a JSON record of the kernel (launches in the
-main-path run, max |x_kernel - x_plain|, ms per main-path solve for the
-kernel and for the plain version, CUDA events); the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON record per kernel: launches in its main
+path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
+main-path solve for the kernel and for its plain version (CUDA events,
+median of 5), and the least time the card could take (``bound_ms``: the
+larger of the bytes each kernel must move over 3.35 TB/s and a lower
+bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
+counted from this run's inputs and iteration counts). No single PyTorch
+call computes an LM fleet solve, so ``library_ms`` is null. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +61,11 @@ REPS = 5
 PHASE3_B = 4096
 X_TOL = 1e-6
 ITER_EQUAL_MIN = 0.999
+# NVIDIA H100 SXM data sheet: memory rate, f32 and f64 rates outside the
+# tensor cores (at the full 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 
 def card_line() -> str:
@@ -53,15 +78,14 @@ def card_line() -> str:
 def ptxas_summary(log_path):
     """One line per kernel instantiation from nvcc's -Xptxas -v log:
     registers, stack frame and spills."""
-    import re
-
     if not os.path.exists(log_path):
         return []
     out, name = [], None
     for line in open(log_path):
-        m = re.search(r"Compiling entry function '.*fused_fleet_kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*(fused|coarse)_fleet_kernelILi(\d+)ELi(\d+)E",
+                      line)
         if m:
-            name = f"fused_fleet_kernel<{m.group(1)},{m.group(2)}>"
+            name = f"{m.group(1)}_fleet_kernel<{m.group(2)},{m.group(3)}>"
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
@@ -123,6 +147,27 @@ def topologies():
     yield "rect_chain(8)", cons, x0
 
 
+def fleets(dev):
+    """(label, bucket, x (PHASE3_B, n) and pars on ``dev``) for every bucket
+    of every topology, from one seed sequence."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.models.blocks import build_buckets
+
+    seed = 0
+    for name, cons, x0 in topologies():
+        for bi, b in enumerate(build_buckets(cons, len(x0))):
+            rng = np.random.default_rng(seed)
+            seed += 1
+            k = np.arange(PHASE3_B) % len(b.components)
+            xb = torch.as_tensor(
+                x0[b.var_index[k]] + rng.normal(0, 1e-3, (PHASE3_B, b.system.n_vars)),
+                device=dev)
+            pars = tuple(torch.as_tensor(np.asarray(p)[k], device=dev) for p in b.pars)
+            yield f"{name}[{bi}]", b, xb, pars
+
+
 def compare(out, ref):
     """Mismatch counts of kernel against plain results."""
     import torch
@@ -147,69 +192,237 @@ def check(label, c):
     ok = (c["conv_mismatch"] == 0 and c["sat_mismatch"] == 0
           and c["deg_mismatch"] == 0 and c["iter_equal"] >= ITER_EQUAL_MIN
           and c["x_err"] <= X_TOL)
-    print(f"phase3 {label}: " + json.dumps(c), flush=True)
+    print(f"{label}: " + json.dumps(c), flush=True)
     if not ok:
         raise SystemExit(f"chip_smoke: kernel disagrees with plain on {label}")
 
 
-def phase3(dev):
-    import numpy as np
+def compare_coarse(out, ref):
+    """The coarse kernel against its plain version: every lane's
+    iterations, converged and degenerate flags, and the f32 point (NaN
+    where the plain version has NaN)."""
     import torch
 
+    x, it, conv, deg = out
+    rx, rit, rconv, rdeg = ref
+    nan_equal = bool(torch.equal(torch.isnan(x), torch.isnan(rx)))
+    fin = torch.isfinite(x) & torch.isfinite(rx)
+    err = float((x - rx).abs()[fin].max()) if bool(fin.any()) else 0.0
+    return dict(
+        lanes=int(conv.numel()),
+        iter_mismatch=int((it != rit).sum()),
+        conv_mismatch=int((conv != rconv).sum()),
+        deg_mismatch=int((deg != rdeg).any(dim=1).sum()),
+        nan_equal=nan_equal,
+        x_err=err,
+        bit_equal_x=bool(torch.equal(x, rx)),
+    )
+
+
+def check_coarse(label, c):
+    ok = (c["iter_mismatch"] == 0 and c["conv_mismatch"] == 0
+          and c["deg_mismatch"] == 0 and c["nan_equal"] and c["x_err"] <= X_TOL)
+    print(f"{label}: " + json.dumps(c), flush=True)
+    if not ok:
+        raise SystemExit(f"chip_smoke: coarse kernel disagrees with plain on {label}")
+
+
+def coarse_solver(system):
     from ezpz_tpu_torch.batch import BatchSolver
     from ezpz_tpu_torch.config import Config
-    from ezpz_tpu_torch.models.blocks import build_buckets
+
+    return BatchSolver(system, Config(), batch_params=True, precision="mixed",
+                       pallas_coarse=True, pallas_fused=False, pallas_trips=3)
+
+
+def fused_solver(system):
+    from ezpz_tpu_torch.batch import BatchSolver
+    from ezpz_tpu_torch.config import Config
+
+    return BatchSolver(system, Config(), batch_params=True, precision="mixed",
+                       pallas_coarse=True, pallas_fused=True, pallas_trips=3,
+                       refine_trips=2)
+
+
+def as_tuple(res):
+    return (res.x, res.iterations, res.converged, res.satisfied, res.degenerate)
+
+
+def phase3(dev):
+    import torch
+
     from ezpz_tpu_torch.ops import fused_fleet
 
-    seed = 0
     n_topologies = 0
-    for name, cons, x0 in topologies():
-        for bi, b in enumerate(build_buckets(cons, len(x0))):
-            solver = BatchSolver(b.system, Config(), batch_params=True,
-                                 precision="mixed", pallas_fused=True,
-                                 pallas_trips=3, refine_trips=2)
-            rng = np.random.default_rng(seed)
-            seed += 1
-            k = np.arange(PHASE3_B) % len(b.components)
-            xb = torch.as_tensor(
-                x0[b.var_index[k]] + rng.normal(0, 1e-3, (PHASE3_B, b.system.n_vars)),
-                device=dev)
-            pars = tuple(torch.as_tensor(np.asarray(p)[k], device=dev) for p in b.pars)
-            out = fused_fleet.fused_fleet_solve(solver.plan, xb, pars, **solver.settings())
-            torch.cuda.synchronize()
-            ref = fused_fleet.fused_fleet_reference(solver.plan, xb, pars,
-                                                    **solver.settings())
-            c = compare(out, ref)
-            c.update(n_vars=b.system.n_vars, rows=b.system.n_rows)
-            check(f"{name}[{bi}]", c)
-            n_topologies += 1
+    for label, b, xb, pars in fleets(dev):
+        solver = fused_solver(b.system)
+        out = fused_fleet.fused_fleet_solve(solver.plan, xb, pars, **solver.settings())
+        torch.cuda.synchronize()
+        ref = fused_fleet.fused_fleet_reference(solver.plan, xb, pars, **solver.settings())
+        c = compare(out, ref)
+        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows)
+        check(f"phase3 {label}", c)
+        n_topologies += 1
     print(f"phase3 ok: {n_topologies} topologies, 0 flag mismatches", flush=True)
 
 
-def phase4(dev, card):
-    import numpy as np
+def phase3b(dev):
     import torch
 
-    from ezpz_tpu_torch.batch import BatchSolver
-    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.ops import coarse_fleet
+
+    n_topologies = 0
+    for label, b, xb, pars in fleets(dev):
+        solver = coarse_solver(b.system)
+        out = coarse_fleet.coarse_fleet_solve(solver.plan, xb, pars, **solver.coarse_settings())
+        torch.cuda.synchronize()
+        ref = coarse_fleet.coarse_fleet_reference(solver.plan, xb, pars,
+                                                  **solver.coarse_settings())
+        c = compare_coarse(out, ref)
+        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows)
+        check_coarse(f"phase3b kernel {label}", c)
+        path = solver.solve(xb, pars)
+        plain = solver.refine(ref[0], ref[1], ref[3], pars)
+        check(f"phase3b path {label}", compare(as_tuple(path), as_tuple(plain)))
+        n_topologies += 1
+    print(f"phase3b ok: {n_topologies} topologies, 0 flag mismatches", flush=True)
+
+
+def massive(dev, make_solver):
+    """(solver, x (COPIES*k, n), pars) per bucket of the massive fixture."""
+    import torch
+
     from ezpz_tpu_torch.models.blocks import build_buckets
-    from ezpz_tpu_torch.ops import fused_fleet
     from ezpz_tpu_torch.textual import Problem
 
     with open(os.path.join(HERE, "tests", "cases", "massive_parallel_system",
                            "problem.md")) as fh:
         cs = Problem.from_str(fh.read()).to_constraint_system()
-    constraints = [r.constraint for r in cs.constraints]
     x0 = guesses(cs)
-    buckets = build_buckets(constraints, len(x0))
-    solvers = []
-    for b in buckets:
-        solver = BatchSolver(b.system, Config(), batch_params=True,
-                             precision="mixed", pallas_coarse=True,
-                             pallas_fused=True, pallas_trips=3, refine_trips=2)
+    out = []
+    for b in build_buckets([r.constraint for r in cs.constraints], len(x0)):
         xb = torch.as_tensor(x0[b.var_index], device=dev).repeat(COPIES, 1)
         pars = tuple(torch.as_tensor(p, device=dev).repeat(COPIES, 1, 1) for p in b.pars)
-        solvers.append((solver, xb, pars))
+        out.append((make_solver(b.system), xb, pars))
+    return out
+
+
+def gate(label, solvers, outs):
+    """The bench gate: every lane converged and satisfied, f64 residual
+    recomputed outside the solver <= 1e-8."""
+    conv = all(bool(o.converged.all()) for o in outs)
+    sat = all(bool(o.satisfied.all()) for o in outs)
+    rmax = 0.0
+    for (s, _xb, pb), o in zip(solvers, outs):
+        r, _deg = s.system.residual_and_flags(o.x, pb)
+        rmax = max(rmax, float(r.abs().max()))
+    iters = max(int(o.iterations.max()) for o in outs)
+    print(f"{label} gate: converged={conv} satisfied={sat} f64_residual_max={rmax!r} "
+          f"lm_iterations_max={iters}", flush=True)
+    if not (conv and sat and rmax <= 1e-8):
+        raise SystemExit(f"chip_smoke: {label} failed the converged/satisfied/1e-8 gate")
+
+
+def timed(fn, marks=1):
+    """REPS calls of ``fn(k, events)`` with fresh inputs (rep index k);
+    ``fn`` records the ``marks + 1`` CUDA events it is given. Returns
+    (median host seconds, median ms between consecutive events per
+    segment, host seconds of every rep)."""
+    import torch
+
+    walls, segs = [], []
+    for k in range(REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(marks + 1)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(k, ev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        segs.append([a.elapsed_time(b) for a, b in zip(ev, ev[1:])])
+    med = [sorted(seg[i] for seg in segs)[REPS // 2] for i in range(marks)]
+    return sorted(walls)[REPS // 2], med, walls
+
+
+def around(dispatch):
+    """A ``timed`` body: the whole of ``dispatch(k)`` between two events."""
+    def body(k, ev):
+        ev[0].record()
+        dispatch(k)
+        ev[1].record()
+    return body
+
+
+def report(label, wall, ms, walls, sketches, card):
+    print(f"{label}: {COPIES / wall!r} solves/s of the 2400-var system "
+          f"({sketches / wall!r} sketch solves/s), median {wall * 1e3!r} ms wall, "
+          f"{ms!r} ms CUDA events, reps {[round(w * 1e3, 3) for w in walls]} ms; "
+          f"card: {card}", flush=True)
+
+
+def step_ops(plan):
+    """A lower bound of one LM step's operations for one lane, from the
+    plan: one per Jacobian entry, the JtJ lower triangle and Jtr products
+    and sums, the Crout factorization on the planned fill, both triangular
+    solves and the step's update; and (separately) the residual rows'
+    evaluation at the trial point with its sum of squares. Kernel-specific
+    residual arithmetic beyond one operation per row is not counted."""
+    import numpy as np
+
+    from ezpz_tpu_torch.ops.fleet_plan import INST_DIM, INST_NV
+
+    jac = 0
+    for row in plan.inst:
+        nv, dim = int(row[INST_NV]), int(row[INST_DIM])
+        jac += dim * nv + 2 * dim * nv + 2 * dim * nv * (nv + 1) // 2
+    nz = np.tril(plan.nzl.astype(bool))
+    factor = 0
+    for i in range(plan.n_vars):
+        for j in range(i + 1):
+            if nz[i, j]:
+                factor += 1 + 2 * int((nz[i, :j] & nz[j, :j]).sum())
+    solve = 2 * (2 * int(nz.sum()) - plan.n_vars)
+    return jac + factor + solve + 3 * plan.n_vars, 3 * plan.n_rows
+
+
+def bound_ms(kind, solvers, outs):
+    """The least time the card could take for one main-path solve of a
+    kernel: the larger of its bytes (inputs read once, outputs written
+    once, plan tables included) over the memory rate and a lower bound of
+    its operations (``step_ops`` times this run's steps per lane: at least
+    the reported iterations) over the f32 and f64 rates. Returns (ms,
+    "bytes" or "operations")."""
+    nbytes, f32_ops, f64_ops = 0, 0, 0
+    for (s, xb, _pb), o in zip(solvers, outs):
+        plan = s.plan
+        B, n = xb.shape
+        per_lane_in = 8 * n + 8 * plan.n_par
+        if kind == "coarse":
+            per_lane_out = 4 * n + 4 + 1 + plan.n_constraints
+        else:
+            per_lane_out = 8 * n + 4 + 1 + 2 * plan.n_constraints
+        tables = plan.inst.nbytes + plan.w32.nbytes + plan.w64.nbytes + 2 * plan.perm.nbytes \
+            + plan.nzl.nbytes
+        nbytes += B * (per_lane_in + per_lane_out) + tables
+        steps = int(o[1].sum())
+        jac_ops, res_ops = step_ops(plan)
+        f32_ops += steps * jac_ops + B * plan.n_rows
+        if kind == "coarse":
+            f32_ops += steps * res_ops
+        else:
+            f64_ops += steps * res_ops + B * plan.n_rows
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
+    print(f"bound {kind}: {nbytes} bytes -> {t_bytes * 1e3!r} ms; {f32_ops} f32 + "
+          f"{f64_ops} f64 operations -> {t_ops * 1e3!r} ms", flush=True)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase4(dev, card):
+    import torch
+
+    from ezpz_tpu_torch.ops import fused_fleet
+
+    solvers = massive(dev, fused_solver)
     sketches = sum(int(xb.shape[0]) for _s, xb, _p in solvers)
     print(f"phase4 buckets: " + json.dumps(
         [{"n_vars": s.system.n_vars, "sketches": int(xb.shape[0])}
@@ -231,51 +444,105 @@ def phase4(dev, card):
     outs = dispatch(warm)
     torch.cuda.synchronize()
     launches = fused_fleet.LAUNCHES
+    print(f"phase4 launches: fused_fleet={launches}", flush=True)
     if launches < len(solvers):
         raise SystemExit(f"chip_smoke: main path launched the kernel {launches} times")
-    conv = all(bool(o.converged.all()) for o in outs)
-    sat = all(bool(o.satisfied.all()) for o in outs)
-    rmax = 0.0
-    for (s, xb, pb), o in zip(solvers, outs):
-        r, _deg = s.system.residual_and_flags(o.x, pb)
-        rmax = max(rmax, float(r.abs().max()))
-    iters = max(int(o.iterations.max()) for o in outs)
-    print(f"phase4 gate: converged={conv} satisfied={sat} f64_residual_max={rmax!r} "
-          f"lm_iterations_max={iters} launches={launches}", flush=True)
-    if not (conv and sat and rmax <= 1e-8):
-        raise SystemExit("chip_smoke: main path failed the converged/satisfied/1e-8 gate")
+    gate("phase4", solvers, outs)
 
     # Kernel against plain at the main path's shapes (not counted above).
     plains = dispatch_plain(warm)
     err = 0.0
     for o, p in zip(outs, plains):
-        c = compare((o.x, o.iterations, o.converged, o.satisfied, o.degenerate), p)
-        check(f"massive x{COPIES} n_vars={o.x.shape[1]}", c)
+        c = compare(as_tuple(o), p)
+        check(f"phase4 massive x{COPIES} n_vars={o.x.shape[1]}", c)
         err = max(err, c["x_err"])
+    bound, bound_by = bound_ms("fused", solvers, [as_tuple(o) for o in outs])
     del outs, plains
 
-    def timed(fn):
-        walls, device_ms = [], []
-        for k in range(REPS):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            fn(k)
-            stop.record()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            device_ms.append(start.elapsed_time(stop))
-        return sorted(walls)[REPS // 2], sorted(device_ms)[REPS // 2], walls
+    kw, (kms,), kwalls = timed(around(dispatch))
+    pw, (pms,), pwalls = timed(around(dispatch_plain))
+    report("phase4 kernel", kw, kms, kwalls, sketches, card)
+    report("phase4 plain", pw, pms, pwalls, sketches, card)
+    return dict(launches=launches, max_abs_err=err, ms=kms, plain_ms=pms,
+                bound_ms=bound, bound_by=bound_by)
 
-    kw, kms, kwalls = timed(dispatch)
-    pw, pms, pwalls = timed(dispatch_plain)
-    for label, wall, ms, walls in (("kernel", kw, kms, kwalls), ("plain", pw, pms, pwalls)):
-        print(f"phase4 {label}: {COPIES / wall!r} solves/s of the 2400-var system "
-              f"({sketches / wall!r} sketch solves/s), median {wall * 1e3!r} ms wall, "
-              f"{ms!r} ms CUDA events, reps {[round(w * 1e3, 3) for w in walls]} ms; "
-              f"card: {card}", flush=True)
-    return dict(launches=launches, max_abs_err=err, ms=kms, plain_ms=pms)
+
+def phase5(dev, card):
+    import torch
+
+    from ezpz_tpu_torch.ops import coarse_fleet, fused_fleet
+
+    solvers = massive(dev, coarse_solver)
+    sketches = sum(int(xb.shape[0]) for _s, xb, _p in solvers)
+
+    def dispatch(k):
+        return [s.solve(xb + k * 1e-9, pb) for s, xb, pb in solvers]
+
+    def coarse_plain(k):
+        return [coarse_fleet.coarse_fleet_reference(s.plan, xb + k * 1e-9, pb,
+                                                    **s.coarse_settings())
+                for s, xb, pb in solvers]
+
+    # The main-path run, counts from zero (offset as in phase 4).
+    warm = 2 * REPS + 1
+    coarse_fleet.LAUNCHES = 0
+    fused_fleet.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs = dispatch(warm)
+    torch.cuda.synchronize()
+    launches, fused_launches = coarse_fleet.LAUNCHES, fused_fleet.LAUNCHES
+    print(f"phase5 launches: coarse_fleet={launches} fused_fleet={fused_launches}; "
+          f"peak device memory {torch.cuda.max_memory_allocated()!r} bytes", flush=True)
+    if launches != len(solvers) or fused_launches != 0:
+        raise SystemExit(f"chip_smoke: coarse main path launched coarse_fleet {launches} "
+                         f"and fused_fleet {fused_launches} times")
+    gate("phase5", solvers, outs)
+
+    # Kernel against plain at the main path's shapes (not counted above):
+    # the coarse kernel alone, then the whole path.
+    err = 0.0
+    kernel_outs = []
+    for (s, xb, pb), p, path in zip(solvers, coarse_plain(warm), outs):
+        o = coarse_fleet.coarse_fleet_solve(s.plan, xb + warm * 1e-9, pb, **s.coarse_settings())
+        c = compare_coarse(o, p)
+        check_coarse(f"phase5 kernel massive x{COPIES} n_vars={s.system.n_vars}", c)
+        err = max(err, c["x_err"])
+        kernel_outs.append(o)
+        plain = s.refine(p[0], p[1], p[3], pb)
+        check(f"phase5 path massive x{COPIES} n_vars={s.system.n_vars}",
+              compare(as_tuple(path), as_tuple(plain)))
+    bound, bound_by = bound_ms("coarse", solvers, kernel_outs)
+    del outs, kernel_outs
+
+    def split(plain):
+        """The coarse kernel (or its plain version) and the refinement,
+        each between its own events, on inputs made before the first."""
+        def body(k, ev):
+            inputs = [(s, xb + k * 1e-9, pb) for s, xb, pb in solvers]
+            ev[0].record()
+            if plain:
+                firsts = [coarse_fleet.coarse_fleet_reference(s.plan, x, pb,
+                                                              **s.coarse_settings())
+                          for s, x, pb in inputs]
+                firsts = [(f[0], f[1], f[3]) for f in firsts]
+            else:
+                firsts = [s.coarse(x, pb) for s, x, pb in inputs]
+            ev[1].record()
+            for (s, _x, pb), f in zip(inputs, firsts):
+                s.refine(*f, pb)
+            ev[2].record()
+        return body
+
+    pw, (pms,), pwalls = timed(around(dispatch))
+    _w, (cms, rms), _ws = timed(split(plain=False), marks=2)
+    qw, (qcms, qrms), qwalls = timed(split(plain=True), marks=2)
+    report("phase5 path", pw, pms, pwalls, sketches, card)
+    report("phase5 path with the plain coarse version", qw, qcms + qrms, qwalls, sketches, card)
+    print(f"phase5 split: coarse kernel {cms!r} ms, refine {rms!r} ms; plain coarse "
+          f"{qcms!r} ms, refine {qrms!r} ms (CUDA events, median of {REPS}); card: {card}",
+          flush=True)
+    return dict(launches=launches, max_abs_err=err, ms=cms, plain_ms=qcms,
+                bound_ms=bound, bound_by=bound_by)
 
 
 def main() -> int:
@@ -306,17 +573,26 @@ def main() -> int:
         print("phase2 ptxas " + line, flush=True)
 
     phase3(dev)
-    rec = phase4(dev, card)
-    print(json.dumps({"kernels": [{
-        "name": "fused_fleet",
-        "route": "cuda",
-        "source": "ezpz_tpu_torch/csrc/fused_fleet.cu",
-        "replaces": "ezpz_tpu/ops/pallas_fleet.py:898",
-        "launches": rec["launches"],
-        "max_abs_err": rec["max_abs_err"],
-        "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"],
-    }]}), flush=True)
+    phase3b(dev)
+    fused = phase4(dev, card)
+    coarse = phase5(dev, card)
+    kernels = []
+    for name, rec, line in (("fused_fleet", fused, 898), ("coarse_fleet", coarse, 598)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"ezpz_tpu_torch/csrc/{name}.cu",
+            "replaces": f"ezpz_tpu/ops/pallas_fleet.py:{line}",
+            "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,13 @@ constraint types, solved by Levenberg-Marquardt. This package ports the
 JAX package ``ezpz_tpu`` (which stays the reference) to PyTorch, with the
 TPU's Pallas kernels rewritten by hand in CUDA C++ for the NVIDIA H100.
 
-The first slice is the fleet path of ``bench.py``: the textual front end
+It holds the fleet paths of ``bench.py``: the textual front end
 (``textual``), constraint lowering (``constraints``), per-type compilation
-(``models.compiled``), component bucketing (``models.blocks``) and the
-fused mixed-precision fleet solver (``batch.BatchSolver`` over
-``ops.fused_fleet``). The package imports ``torch`` and never ``jax``.
+(``models.compiled``), component bucketing (``models.blocks``), the batched
+Levenberg-Marquardt loop (``solver``, ``ops.linalg``) and
+``batch.BatchSolver`` over it and over the coarse and fused fleet kernels
+(``ops.coarse_fleet``, ``ops.fused_fleet``). The package imports ``torch``
+and never ``jax``.
 """
 
 from .config import Config

@@ -1,14 +1,22 @@
 """Scenario batching: solve many same-topology sketches at once.
 
 The PyTorch counterpart of ``ezpz_tpu/batch.py``. One topology, a batch
-of initial guesses and per-sketch constraint parameters, each sketch
-running its own Levenberg-Marquardt loop. This package has the fused
-mixed-precision path only (``precision="mixed"``, ``pallas_fused=True``,
-``batch_params=True``): on a CUDA tensor it runs the hand-written kernel of
-``ops/fused_fleet``, on a CPU tensor the kernel's plain version. The
-batched f64 and mixed XLA-style paths, the coarse kernel and
-``finish_stragglers`` are ROADMAP queue-1 items 4-6 and queue-2 item 1;
-asking for them raises ``NotImplementedError``.
+of initial guesses and (optionally) per-sketch constraint parameters, each
+sketch running its own Levenberg-Marquardt loop. The modes:
+
+* ``precision="f64"`` or ``"mixed"`` with both kernels off: the batched
+  LM loop of ``solver`` (``solve_lm``, ``solve_lm_mixed``), for
+  ``batch_params`` True or False;
+* ``pallas_coarse=True, pallas_fused=False``: the coarse fleet kernel
+  (``ops/coarse_fleet``) for a fixed number of f32 trips, then the batched
+  f64-residual ``solve_lm_refine``;
+* ``pallas_fused=True``: both phases in the fused fleet kernel
+  (``ops/fused_fleet``).
+
+The kernel modes need ``precision="mixed"`` and ``batch_params=True`` (the
+JAX package asserts the same). A kernel wrapper launches its CUDA kernel on
+a CUDA tensor and takes its plain PyTorch version on a CPU tensor; the
+solver runs on ``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -20,15 +28,11 @@ import torch
 
 from .config import Config
 from .models.compiled import CompiledSystem
+from .ops.coarse_fleet import coarse_fleet_solve
 from .ops.fleet_plan import plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
-
-_ONLY_FUSED = (
-    "ezpz_tpu_torch.BatchSolver supports only batch_params=True, "
-    "precision='mixed', pallas_fused=True so far; the batched f64/mixed "
-    "paths and the coarse kernel are ROADMAP.md queue 1 items 4-6 and "
-    "queue 2 item 1"
-)
+from .solver import (COARSE_TOLERANCE, LMResult, solve_lm, solve_lm_mixed,
+                     solve_lm_refine)
 
 
 @dataclass
@@ -41,12 +45,15 @@ class BatchResult:
 
 
 class BatchSolver:
-    """A fused mixed-precision fleet solver for one topology.
+    """A batched LM solver for one topology.
 
-    ``pars`` is a tuple of (B, n_k, np_k) float64 tensors aligned with
-    ``system.blocks`` — per-sketch constraint parameters. The constructor
-    takes the JAX package's argument names; ``pallas_trips`` is the coarse
-    (f32) trip count and ``refine_trips`` the f64-residual trip count.
+    ``pars`` (with ``batch_params=True``) is a tuple of (B, n_k, np_k)
+    float64 tensors aligned with ``system.blocks``: per-sketch constraint
+    parameters. The constructor takes the JAX package's argument names;
+    ``pallas_trips`` is the coarse (f32) trip count of the kernel modes and
+    ``refine_trips`` the fused kernel's f64-residual trip count. ``device``
+    is where ``solve`` runs: the card (``"cuda"``) by default, the CPU only
+    when asked (``device="cpu"``).
 
     Pin p, hold q at distance 5, and solve three sketches at once:
 
@@ -64,7 +71,7 @@ class BatchSolver:
     >>> pars = tuple(torch.as_tensor(b.par).expand(3, -1, -1)
     ...              for b in system.blocks)
     >>> solver = BatchSolver(system, Config(), batch_params=True,
-    ...                      precision="mixed", pallas_fused=True)
+    ...                      precision="mixed", pallas_fused=True, device="cpu")
     >>> res = solver.solve(x0, pars)
     >>> bool(res.converged.all())
     True
@@ -76,18 +83,29 @@ class BatchSolver:
     def __init__(self, system: CompiledSystem, config: Config = Config(),
                  batch_params: bool = False, precision: str = "f64",
                  pallas_coarse: bool = False, pallas_trips: int = 4,
-                 pallas_fused: bool = False, refine_trips: int = 4):
-        if not (batch_params and precision == "mixed" and pallas_fused):
-            raise NotImplementedError(_ONLY_FUSED)
+                 pallas_fused: bool = False, refine_trips: int = 4,
+                 device=None):
+        if precision not in ("f64", "mixed"):
+            raise ValueError(f"precision must be 'f64' or 'mixed', got {precision!r}")
+        if pallas_fused:
+            pallas_coarse = True  # the fused kernel runs the coarse phase too
+        if pallas_coarse and not (precision == "mixed" and batch_params):
+            raise ValueError("the kernel modes (pallas_coarse, pallas_fused) "
+                             "require precision='mixed' and batch_params=True")
         self.system = system
+        self.system32 = system.astype(torch.float32)
         self.config = config
         self.batch_params = batch_params
         self.precision = precision
-        self.pallas_coarse = True  # phase 1 of the fused kernel
+        self.pallas_coarse = pallas_coarse
         self.pallas_fused = pallas_fused
         self.pallas_trips = pallas_trips
         self.refine_trips = refine_trips
-        self.plan = plan_fleet(system)
+        self.device = torch.device("cuda" if device is None else device)
+        self.plan = plan_fleet(system) if pallas_coarse else None
+        # With strictly positive weights, satisfaction comes from the final
+        # weighted residual (no extra evaluation).
+        self._fast_sat = system.all_weights_positive()
 
     def settings(self) -> dict:
         """The fused solver's trip counts and tolerances (as the JAX
@@ -99,27 +117,113 @@ class BatchSolver:
             max_iterations=c.max_iterations,
             # O(1)-coordinate coarse tolerance, scaled per lane in the
             # kernel by max(1, |x0|_inf), with a 1e-7*scale step floor.
-            coarse_tolerance=5e-6,
+            coarse_tolerance=COARSE_TOLERANCE,
             residual_tolerance=c.residual_tolerance,
             coarse_step_tolerance=c.step_tolerance,
             step_tolerance=c.step_tolerance,
             initial_lambda=c.initial_lambda,
         )
 
-    def solve(self, x0: torch.Tensor, pars: Optional[Tuple] = None,
-              finish_stragglers: bool = False) -> BatchResult:
-        """Solve the batch on ``x0``'s device. ``finish_stragglers`` is not
-        supported yet (ROADMAP.md queue 1 item 6)."""
-        if finish_stragglers:
-            raise NotImplementedError(
-                "finish_stragglers needs the batched mixed path "
-                "(ROADMAP.md queue 1 item 6)")
+    def coarse_settings(self) -> dict:
+        """The coarse kernel's trips and tolerances (as the JAX package's
+        ``_pallas_coarse_fn`` passes them)."""
+        c = self.config
+        return dict(trips=min(self.pallas_trips, c.max_iterations),
+                    tolerance=COARSE_TOLERANCE, step_tolerance=c.step_tolerance,
+                    initial_lambda=c.initial_lambda)
+
+    def _inputs(self, x0, pars):
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BatchSolver runs on the GPU unless asked otherwise, and no "
+                "CUDA device is available; pass device='cpu' to solve on the CPU")
+        x0 = torch.as_tensor(x0, dtype=torch.float64, device=self.device)
+        if not self.batch_params:
+            return x0, None
         if pars is None:
             raise ValueError("batch_params=True requires pars")
-        x0 = torch.as_tensor(x0, dtype=torch.float64)
-        pars = tuple(torch.as_tensor(p, dtype=torch.float64, device=x0.device)
-                     for p in pars)
-        x, its, conv, sat, deg = fused_fleet_solve(self.plan, x0, pars,
-                                                   **self.settings())
-        return BatchResult(x=x, iterations=its, converged=conv,
-                           satisfied=sat, degenerate=deg)
+        return x0, tuple(torch.as_tensor(p, dtype=torch.float64, device=self.device)
+                         for p in pars)
+
+    def _result(self, res: LMResult, pars) -> BatchResult:
+        if self._fast_sat:
+            sat = self.system.satisfaction_from_residual(res.residual)
+        else:
+            sat = self.system.constraint_satisfaction(res.x, pars)
+        return BatchResult(x=res.x, iterations=res.iterations,
+                           converged=res.converged, satisfied=sat,
+                           degenerate=res.deg)
+
+    def _solve_plain(self, x0, pars) -> BatchResult:
+        c = self.config
+        args = (c.max_iterations, c.residual_tolerance, c.step_tolerance,
+                c.initial_lambda)
+        if self.precision == "mixed":
+            pars32 = None if pars is None else tuple(p.float() for p in pars)
+            res = solve_lm_mixed(self.system, self.system32, x0, *args,
+                                 pars64=pars, pars32=pars32)
+        else:
+            res = solve_lm(self.system, x0, *args, pars=pars)
+        return self._result(res, pars)
+
+    def coarse(self, x0: torch.Tensor, pars: Tuple):
+        """The coarse kernel on a batch: ``(x f32 (B, n), iterations (B,)
+        int32, degenerate (B, n_cons) bool)``."""
+        x, its, _conv, deg = coarse_fleet_solve(self.plan, x0, pars,
+                                                **self.coarse_settings())
+        return x, its, deg
+
+    def refine(self, x1: torch.Tensor, its: torch.Tensor, deg: torch.Tensor,
+               pars: Tuple) -> BatchResult:
+        """The batched f64-residual refinement from a coarse result, with
+        its budget of ``solver.REFINE_ITERATIONS`` trips (as the JAX
+        package's ``refine_one`` calls ``solve_lm_refine``), then
+        satisfaction."""
+        c = self.config
+        res = solve_lm_refine(
+            self.system, self.system32, x1, its, deg, c.max_iterations,
+            c.residual_tolerance, c.step_tolerance, c.initial_lambda,
+            pars64=pars, pars32=tuple(p.float() for p in pars))
+        return self._result(res, pars)
+
+    def _finish_stragglers(self, result: BatchResult, x0, pars) -> BatchResult:
+        """Re-solve the lanes the fixed-trip kernel left unconverged through
+        the plain mixed path (restarting from their original guesses) and
+        merge. Costs one converged-mask sync per batch."""
+        stragglers = torch.nonzero(~result.converged).squeeze(1)
+        if stragglers.numel() == 0:
+            return result
+        res = self._solve_plain(
+            x0[stragglers], None if pars is None else tuple(p[stragglers] for p in pars))
+        merged = {}
+        for name in ("x", "iterations", "converged", "satisfied", "degenerate"):
+            t = getattr(result, name).clone()
+            t[stragglers] = getattr(res, name)
+            merged[name] = t
+        return BatchResult(**merged)
+
+    def solve(self, x0, pars: Optional[Tuple] = None,
+              finish_stragglers: bool = False) -> BatchResult:
+        """Solve the batch on ``self.device``; ``x0`` (B, n) and ``pars``
+        may be numpy arrays or tensors on any device.
+
+        ``finish_stragglers`` (kernel modes only): lanes the fixed-trip
+        kernel leaves unconverged are re-solved through the plain mixed path
+        and merged."""
+        x0, pars = self._inputs(x0, pars)
+        if self.pallas_fused:
+            out = BatchResult(*fused_fleet_solve(self.plan, x0, pars, **self.settings()))
+        elif self.pallas_coarse:
+            out = self.refine(*self.coarse(x0, pars), pars)
+        else:
+            return self._solve_plain(x0, pars)
+        if finish_stragglers:
+            out = self._finish_stragglers(out, x0, pars)
+        return out
+
+    def solve_analysis(self, x0, pars: Optional[Tuple] = None):
+        """Not ported yet: freedom analysis needs ``dof.py`` and a batched
+        ``jacobian_dense`` (ROADMAP.md queue 1 item 6)."""
+        raise NotImplementedError(
+            "BatchSolver.solve_analysis is not ported yet (ROADMAP.md queue 1 "
+            "item 6: dof.py and BatchSolver.solve_analysis)")

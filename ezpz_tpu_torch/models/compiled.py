@@ -10,6 +10,7 @@ axis: one call evaluates a whole fleet of sketches sharing the topology.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from functools import cached_property
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -85,6 +86,154 @@ class CompiledSystem:
             r = torch.zeros(batch + (0,), dtype=x.dtype, device=x.device)
         return r, deg_acc > 0
 
+    def normal_equations(self, x: torch.Tensor, pars=None,
+                         rhs: Optional[torch.Tensor] = None):
+        """``(r (B, n_rows), JtJ (B, n, n), Jtr (B, n), degenerate flags
+        (B, n_constraints))`` at ``x`` (B, n_vars).
+
+        Jacobian columns come by forward mode per kernel (``torch.func.jvp``
+        with one-hot tangents, one per instance variable). JtJ and Jtr are
+        accumulated from per-instance products in the JAX package's order:
+        block by block, instance by instance (``_assembly``), with fixed
+        gathers and adds, so the sums are deterministic on any device.
+
+        ``rhs`` optionally substitutes an already-evaluated weighted
+        residual (possibly wider; it is cast to this system's dtype) for the
+        right-hand side: ``jtr = J^T cast(rhs)``. ``x`` is cast likewise, so
+        the call is valid on an f32 twin with f64 inputs."""
+        x = x.to(self.dtype)
+        B, n = x.shape[0], self.n_vars
+        dev = x.device
+        parts, jj, jr = [], [], []
+        deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
+        slices = self.block_row_slices()
+        for i, b in enumerate(self.blocks):
+            spec = b.spec
+            idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+            v = x[:, idx]  # (B, nb, nv)
+            vs = tuple(v[..., k] for k in range(spec.nvars))
+            p = self._pars(pars, i, x)
+            ps = [p[..., k] for k in range(spec.nparams)]
+            one, zero = torch.ones_like(vs[0]), torch.zeros_like(vs[0])
+            w = torch.as_tensor(b.weight, dtype=self.dtype, device=dev)
+            wjac = []
+            for a in range(spec.nvars):
+                tangent = tuple(one if r == a else zero for r in range(spec.nvars))
+                res, dres, deg = torch.func.jvp(
+                    lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent, has_aux=True)
+                wjac.append([dres[d] * w for d in range(spec.dim)])
+            if rhs is None:
+                wres = [res[d] * w for d in range(spec.dim)]
+            else:
+                lo, hi = slices[i]
+                r_b = rhs[:, lo:hi].to(self.dtype).reshape(B, -1, spec.dim)
+                wres = [r_b[..., d] for d in range(spec.dim)]
+            for ka in wjac:
+                jr.append(_dot(ka, wres))
+                jj.extend(_dot(ka, la) for la in wjac)
+            parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
+            if spec.can_degenerate:
+                cid = torch.as_tensor(b.cid, dtype=torch.long, device=dev)
+                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+        jtj, jtr = self._assemble(jj, jr, B, x)
+        if parts:
+            r = torch.cat(parts, dim=-1)
+        else:
+            r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
+        return r, jtj, jtr, deg_acc > 0
+
+    def _assemble(self, jj, jr, B, like):
+        """Sum per-instance products into JtJ (B, n, n) and Jtr (B, n).
+        ``jj`` holds, per block, one (B, nb) tensor for each (k, l) pair of
+        instance variables; ``jr`` one for each k."""
+        n = self.n_vars
+        dev = like.device
+        out = []
+        for vals, (entries, gather, size) in zip((jj, jr), self._assembly):
+            # Columns in the plan's numbering: [block, (k[, l]), instance],
+            # then one zero column that pads the gather lists.
+            cols = torch.cat([*vals, torch.zeros_like(like[:, :1])], dim=1)
+            flat = torch.zeros((B, size), dtype=self.dtype, device=dev)
+            if len(entries):
+                g = torch.as_tensor(gather, device=dev)
+                acc = cols[:, g[:, 0]]
+                for c in range(1, g.shape[1]):
+                    acc = acc + cols[:, g[:, c]]
+                flat[:, torch.as_tensor(entries, device=dev)] = acc
+            out.append(flat)
+        return out[0].reshape(B, n, n), out[1]
+
+    @cached_property
+    def _assembly(self):
+        """Host plan of ``_assemble``, built once: for JtJ (flattened n*n)
+        and Jtr, the entries that receive contributions, and per entry the
+        contribution columns to add, in the JAX package's scatter order
+        (block, instance, then k, l), padded with the zero column."""
+        n = self.n_vars
+        jj_lists, jr_lists = {}, {}
+        off_jj = off_jr = 0
+        for b in self.blocks:
+            nb, nv = b.idx.shape
+            for inst in range(nb):
+                ids = [int(j) for j in b.idx[inst]]
+                for k in range(nv):
+                    jr_lists.setdefault(ids[k], []).append(off_jr + k * nb + inst)
+                    for l in range(nv):
+                        jj_lists.setdefault(ids[k] * n + ids[l], []).append(
+                            off_jj + (k * nv + l) * nb + inst)
+            off_jj += nb * nv * nv
+            off_jr += nb * nv
+        plan = []
+        for lists, zero_col, size in ((jj_lists, off_jj, n * n), (jr_lists, off_jr, n)):
+            entries = sorted(lists)
+            width = max((len(v) for v in lists.values()), default=0)
+            gather = np.full((len(entries), width), zero_col, dtype=np.int64)
+            for row, e in enumerate(entries):
+                gather[row, :len(lists[e])] = lists[e]
+            plan.append((np.asarray(entries, dtype=np.int64), gather, size))
+        return tuple(plan)
+
+    def refine_normal_equations(self, x64: torch.Tensor, r64: torch.Tensor,
+                                pars=None):
+        """Mixed-precision normal equations for iterative refinement: the
+        Jacobian in this system's dtype (call on the f32 twin) at
+        ``x64`` cast, against the f64 residual ``r64`` cast:
+        ``jtr = J32^T cast(r64)``. Returns ``(jtj, jtr, deg)``."""
+        _r, jtj, jtr, deg = self.normal_equations(x64, pars, rhs=r64)
+        return jtj, jtr, deg
+
+    def constraint_satisfaction(self, x: torch.Tensor, pars=None) -> torch.Tensor:
+        """Per-constraint satisfaction from a fresh evaluation: every
+        unweighted residual row below 1e-4 (``ezpz/src/lib.rs:307-327``).
+        A NaN row is unsatisfied. Returns (..., n_constraints) bool."""
+        batch = x.shape[:-1]
+        unsat = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
+                            device=x.device)
+        for i, b in enumerate(self.blocks):
+            idx = torch.as_tensor(b.idx, dtype=torch.long, device=x.device)
+            v = x[..., idx]
+            p = self._pars(pars, i, x)
+            res, _deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
+                                  [p[..., k] for k in range(b.spec.nparams)])
+            bad = ~(torch.abs(res) < EPSILON).all(dim=0)  # (..., nb)
+            cid = torch.as_tensor(b.cid, dtype=torch.long, device=x.device)
+            unsat.index_add_(-1, cid, bad.to(torch.int32))
+        return unsat == 0
+
+    def all_weights_positive(self) -> bool:
+        return all(float(np.min(b.weight)) > 0.0 for b in self.blocks) if self.blocks else True
+
+    def block_row_slices(self) -> Tuple[Tuple[int, int], ...]:
+        """(start, stop) row ranges of each block inside the concatenated
+        residual vector (compiled row order)."""
+        out = []
+        row = 0
+        for b in self.blocks:
+            n = int(b.idx.shape[0]) * b.spec.dim
+            out.append((row, row + n))
+            row += n
+        return tuple(out)
+
     def satisfaction_from_residual(self, r: torch.Tensor) -> torch.Tensor:
         """Per-constraint satisfaction from an evaluated weighted residual
         ``(..., n_rows)``: every unweighted row ``|r| / w`` below 1e-4
@@ -115,6 +264,14 @@ class CompiledSystem:
             for b in self.blocks
         )
         return replace(self, blocks=blocks, dtype=dtype)
+
+
+def _dot(a, b):
+    """``a[0]*b[0] + a[1]*b[1] + ...`` over lists of tensors, in order."""
+    acc = a[0] * b[0]
+    for u, v in zip(a[1:], b[1:]):
+        acc = acc + u * v
+    return acc
 
 
 def compile_system(

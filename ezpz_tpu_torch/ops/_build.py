@@ -2,11 +2,12 @@
 them with ``ctypes``.
 
 The library has a plain C interface (no PyTorch headers), so ``nvcc``
-builds it in seconds. It lands in ``build/ezpz_tpu_torch/`` under the
-repository root, named by a hash of the sources and flags: a rebuilt
-checkout with unchanged sources reuses it, and any edit rebuilds. The
-compiler's output (``-Xptxas -v``: registers, local memory, spills per
-instantiation) is kept beside the library as ``<name>.log``.
+builds it in seconds: one ``nvcc -c`` per source, all started together,
+then one link. It lands in ``build/ezpz_tpu_torch/`` under the repository
+root, named by a hash of the sources and flags: a rebuilt checkout with
+unchanged sources reuses it, and any edit rebuilds. The compiler's output
+(``-Xptxas -v``: registers, local memory, spills per instantiation) is kept
+beside the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -21,20 +22,20 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_fleet.cu",)
+SOURCES = ("fused_fleet.cu", "coarse_fleet.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ezpz_tpu_torch"
 
-# IEEE division and sqrt and no FMA contraction keep the kernel's f32 phase
-# comparable with the plain version operation for operation.
+# IEEE division and sqrt and no FMA contraction keep the kernels' f32
+# phase comparable with the plain versions operation for operation.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "--fmad=false", "-std=c++17",
     "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # (max variables, max residual rows) of each compiled instantiation of the
-# kernel, smallest first. Mirrors CAPS in csrc/fused_fleet.cu.
+# kernels, smallest first. Mirrors CAPS in csrc/fleet_common.cuh.
 CAPACITIES = ((4, 8), (16, 32), (64, 256))
 
 
@@ -49,7 +50,7 @@ def capacity_for(plan) -> tuple:
     n_max, rows_max = CAPACITIES[-1]
     raise NotImplementedError(
         f"topology with {plan.n_vars} variables and {need_rows} residual "
-        f"rows exceeds the fused kernel's largest capacity ({n_max} "
+        f"rows exceeds the fleet kernels' largest capacity ({n_max} "
         f"variables, {rows_max} rows)")
 
 
@@ -60,7 +61,7 @@ def _nvcc() -> str:
     fallback = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(fallback):
         return fallback
-    raise RuntimeError("nvcc not found: the fused fleet CUDA kernel cannot be built")
+    raise RuntimeError("nvcc not found: the fleet CUDA kernels cannot be built")
 
 
 def library_path() -> Path:
@@ -71,7 +72,7 @@ def library_path() -> Path:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libezpz_fused_fleet_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libezpz_fleet_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -81,26 +82,39 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    log = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        Path(str(so) + ".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [str(Path(tmp) / (Path(src).stem + ".o")) for src in SOURCES]
+            # One compiler per source, all started together; then one link.
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(SOURCES, objs)]
+            outs = [proc.communicate()[0] for proc in procs]
+            log += [" ".join(proc.args) + "\n" + out for proc, out in zip(procs, outs)]
+            failed = [f"nvcc failed ({proc.returncode}):\n{out}"
+                      for proc, out in zip(procs, outs) if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("\n".join(failed))
+            lib = str(Path(tmp) / so.name)
+            link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                    "-o", lib, *objs]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(lib, so)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        Path(str(so) + ".log").write_text("\n".join(log))
     return so
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel library, with its C
+    """Build (at first use) and load the kernels' library, with its C
     signatures declared. Loaded once per process."""
     lib = ctypes.CDLL(str(build()))
     p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
@@ -112,6 +126,16 @@ def load_library() -> ctypes.CDLL:
         i, i, i,                   # coarse_trips, refine_trips, max_iterations
         f, f, f, d, f, f, f,       # ctol, cstol, stol, rtol, lam0, decr, incr
         p, p, p, p, p,             # x, iterations, converged, sat, deg
+        p,                         # stream
+    ]
+    lib.ezpz_coarse_fleet.restype = i
+    lib.ezpz_coarse_fleet.argtypes = [
+        i, i,                      # capacity (n_max, rows_max)
+        p, p, i, i, i, i, i,       # x0, par, B, n, rows, n_cons, P
+        p, i, p, p, p, p, p,       # inst, n_inst, w32, w64, perm, inv, nzl
+        i,                         # trips
+        f, f, f, f, f,             # ctol, cstol, lam0, decr, incr
+        p, p, p, p,                # x, iterations, converged, deg
         p,                         # stream
     ]
     lib.ezpz_fused_fleet_capacity.restype = i

@@ -1,0 +1,256 @@
+"""Levenberg-Marquardt over an explicit batch of sketches.
+
+The PyTorch counterpart of ``ezpz_tpu/solver.py`` (``solve_lm``,
+``solve_lm_mixed``, ``solve_lm_refine`` and their helpers). The JAX package
+writes one sketch's loop and ``vmap``s it; here every tensor carries a
+leading batch axis of B lanes and the loop is written out:
+
+* ``_lm_while_loop`` runs while any lane is live (not done, under its own
+  iteration limit, residual above tolerance), one host sync per trip. A
+  trip computes every lane and keeps the new state only on live lanes, as
+  ``vmap`` of ``lax.while_loop`` does: a lane whose condition is false keeps
+  all of its state, lambda and counters included.
+* Semantics are the reference's (``ezpz/src/solver/newton.rs:29-145``):
+  residual check at the top of a trip, step check at the bottom, a failed
+  factorization is a rejected step, a step is accepted iff ``|r|^2``
+  strictly drops, lambda times 0.1 on accept and 10 on reject.
+
+``solve_gauss_newton``, ``solve_lm_cg`` and ``make_solver`` are not ported
+yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
+from .models.compiled import CompiledSystem
+from .ops.linalg import spd_solve
+
+# The mixed path's f32 phase: at most this many trips, toward this residual
+# tolerance (just above f32 round-off for O(1) coordinates), both as the
+# JAX package's ``solve_lm_mixed`` defaults them. The coarse fleet kernels
+# use the same tolerance.
+COARSE_MAX_ITERATIONS = 20
+COARSE_TOLERANCE = 5e-6
+# The f64-residual refinement's trip budget per lane (``solve_lm_refine``'s
+# default in the JAX package, which its coarse-kernel path relies on).
+REFINE_ITERATIONS = 6
+
+
+class LMState(NamedTuple):
+    x: torch.Tensor  # (B, n)
+    r: torch.Tensor  # (B, m)
+    r2: torch.Tensor  # (B,)
+    lam: torch.Tensor  # (B,)
+    it: torch.Tensor  # (B,) int32
+    done: torch.Tensor  # (B,) bool
+    converged: torch.Tensor  # (B,) bool
+    iterations: torch.Tensor  # (B,) int32
+    deg: torch.Tensor  # (B, n_constraints) bool — any degenerate eval
+
+
+class LMResult(NamedTuple):
+    x: torch.Tensor
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    deg: torch.Tensor
+    residual: torch.Tensor  # weighted residual at the final x
+
+
+def _rows_max_abs(r: torch.Tensor) -> torch.Tensor:
+    """NaN-propagating max |row| per lane (0 for a system with no rows)."""
+    if r.shape[-1] == 0:
+        return torch.zeros(r.shape[:-1], dtype=r.dtype, device=r.device)
+    return torch.amax(torch.abs(r), dim=-1)
+
+
+def _init_state(system, x0, initial_lambda, lam_dtype=None, pars=None,
+                deg_extra=None) -> LMState:
+    """Initial LM state: residual (and flags) evaluated at the cast x0."""
+    dtype = system.dtype
+    x = x0.to(dtype)
+    B = x.shape[0]
+    r0, deg0 = system.residual_and_flags(x, pars)
+    if deg_extra is not None:
+        deg0 = deg0 | deg_extra
+    zeros_i = torch.zeros((B,), dtype=torch.int32, device=x.device)
+    false = torch.zeros((B,), dtype=torch.bool, device=x.device)
+    return LMState(
+        x=x, r=r0, r2=torch.sum(r0 * r0, dim=-1),
+        lam=torch.full((B,), initial_lambda, dtype=lam_dtype or dtype, device=x.device),
+        it=zeros_i, done=false, converged=false, iterations=zeros_i, deg=deg0,
+    )
+
+
+def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
+                   boundary_parity: bool):
+    """The shared LM accept/reject loop over a batch.
+
+    ``step_fn(s) -> (d, fail, deg_j)`` gives the damped step (and the
+    Jacobian pass's degenerate flags); ``eval_fn(x) -> (r, deg)`` the trial
+    residual. ``limit``, ``rtol`` and ``stol`` are scalars or per-lane (B,)
+    tensors. ``boundary_parity``: residual convergence counts only while
+    steps remain (the reference never re-checks after its last iteration);
+    the f64 refinement passes False. Returns ``(final_state, res_conv)``."""
+    s = state
+    dtype = s.lam.dtype
+    decr = torch.tensor(LM_LAMBDA_DECR, dtype=dtype, device=s.lam.device)
+    incr = torch.tensor(LM_LAMBDA_INCR, dtype=dtype, device=s.lam.device)
+    while True:
+        rinf = _rows_max_abs(s.r)
+        live = ~s.done & (s.it < limit) & (rinf > rtol)
+        if not bool(live.any()):
+            break
+        res_now = (rinf <= rtol) & ~s.done
+        if boundary_parity:
+            res_now = res_now & (s.it < limit)
+        act = ~s.done & ~res_now
+
+        d, fail, deg_j = step_fn(s)
+        step_inf = _rows_max_abs(d)
+        x_new = s.x + d
+        r_new, deg_r = eval_fn(x_new)
+        r2_new = torch.sum(r_new * r_new, dim=-1)
+        accept = ~fail & (r2_new < s.r2)
+
+        take = act & accept
+        step_conv = act & ~fail & (step_inf <= stol)
+        new = LMState(
+            x=torch.where(take[:, None], x_new, s.x),
+            r=torch.where(take[:, None], r_new, s.r),
+            r2=torch.where(take, r2_new, s.r2),
+            lam=torch.where(act, torch.where(accept, s.lam * decr, s.lam * incr), s.lam),
+            it=torch.where(act, s.it + 1, s.it),
+            done=s.done | res_now | step_conv,
+            converged=s.converged | res_now | step_conv,
+            iterations=torch.where(res_now | step_conv, s.it, s.iterations),
+            deg=s.deg | ((deg_j | deg_r) & act[:, None]),
+        )
+        # Lanes whose loop condition is false keep all of their state.
+        s = LMState(*(torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+                      for a, b in zip(new, s)))
+    res_conv = _rows_max_abs(s.r) <= rtol
+    if boundary_parity:
+        res_conv = res_conv & (s.it < limit)
+    return s, res_conv
+
+
+def _reference_result(final: LMState, res_conv, max_iterations: int) -> LMResult:
+    """Reference-exact outcome: residual convergence reports the steps taken
+    so far; step convergence pinned its index inside the loop; an exhausted
+    budget reports ``max_iterations`` with ``converged = False``."""
+    iterations = torch.where(
+        final.done, final.iterations,
+        torch.where(res_conv, final.it, torch.full_like(final.it, max_iterations)))
+    return LMResult(x=final.x, iterations=iterations,
+                    converged=final.converged | res_conv, deg=final.deg,
+                    residual=final.r)
+
+
+def damped_spd_solve(jtj, lam, b):
+    """``spd_solve(jtj + lam*I, b)`` per lane with an f32 singular-rescue retry.
+
+    In f64 this is one plain factorization (reference-exact). In f32 a
+    lane whose factorization FAILS with the raw lambda is re-factored with
+    lambda floored at ``1e-6 * max|diag|`` (just above f32 round-off for the
+    matrix's scale); well-conditioned lanes keep the exact damping. The
+    carried lambda is untouched either way (``ezpz_tpu/solver.py:176-202``).
+    ``lam`` is (B,)."""
+    n = jtj.shape[-1]
+    eye = torch.eye(n, dtype=jtj.dtype, device=jtj.device)
+    d, fail = spd_solve(jtj + lam[:, None, None] * eye, b)
+    if jtj.dtype != torch.float32:
+        return d, fail
+    diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
+    floor = 1e-6 * _rows_max_abs(diag)
+    d2, fail2 = spd_solve(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
+    return torch.where(fail[:, None], d2, d), fail & fail2
+
+
+def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
+             residual_tolerance, step_tolerance, initial_lambda, pars=None) -> LMResult:
+    """Run the LM loop on a batch ``x0`` (B, n) of one topology.
+    ``residual_tolerance`` and ``step_tolerance`` are scalars or per-lane
+    (B,) tensors; ``pars`` optionally overrides the per-block parameters
+    with (B, n_k, p_k) tensors."""
+    dtype = system.dtype
+    dev = x0.device
+    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
+    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    state = _init_state(system, x0, initial_lambda, pars=pars)
+
+    def step(s: LMState):
+        _r, jtj, jtr, deg_j = system.normal_equations(s.x, pars)
+        d, fail = damped_spd_solve(jtj, s.lam, -jtr)
+        return d, fail, deg_j
+
+    final, res_conv = _lm_while_loop(
+        state, lambda x: system.residual_and_flags(x, pars), step,
+        max_iterations, rtol, stol, boundary_parity=True)
+    return _reference_result(final, res_conv, max_iterations)
+
+
+def solve_lm_mixed(system64: CompiledSystem, system32: CompiledSystem,
+                   x0: torch.Tensor, max_iterations: int, residual_tolerance,
+                   step_tolerance, initial_lambda, pars64=None,
+                   pars32=None) -> LMResult:
+    """Mixed-precision LM: f32 iterations, then f64-residual refinement.
+
+    Phase 1 runs ``solve_lm`` on the f32 twin, at most
+    ``COARSE_MAX_ITERATIONS`` trips, toward ``COARSE_TOLERANCE`` and the
+    step floor ``1e-7``, both scaled per lane by ``max(1, |x0|_inf)``
+    (f32 round-off on residuals scales with coordinate magnitude). Phase 2
+    is ``solve_lm_refine``. ``iterations`` counts both phases."""
+    f32 = system32.dtype
+    scale = torch.maximum(torch.ones((), dtype=f32, device=x0.device),
+                          _rows_max_abs(x0).to(f32))
+    coarse = solve_lm(
+        system32, x0.to(f32), min(max_iterations, COARSE_MAX_ITERATIONS),
+        torch.tensor(COARSE_TOLERANCE, dtype=f32, device=x0.device) * scale,
+        torch.maximum(torch.tensor(step_tolerance, dtype=f32, device=x0.device),
+                      1e-7 * scale),
+        initial_lambda, pars=pars32)
+    return solve_lm_refine(
+        system64, system32, coarse.x, coarse.iterations, coarse.deg,
+        max_iterations, residual_tolerance, step_tolerance, initial_lambda,
+        pars64=pars64, pars32=pars32)
+
+
+def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
+                    x_coarse: torch.Tensor, coarse_iterations, coarse_deg,
+                    max_iterations: int, residual_tolerance, step_tolerance,
+                    initial_lambda, pars64=None, pars32=None) -> LMResult:
+    """The f64-residual refinement: from a coarse point (B, n), its
+    iteration counts (B,) and degenerate flags (B, n_cons), run LM trips
+    whose residual and accept/reject are f64 while the Jacobian, normal
+    equations and factorization stay f32. Lambda restarts at
+    ``initial_lambda`` in f32. Each lane's budget is
+    ``clip(max_iterations - coarse_iterations, 0, REFINE_ITERATIONS)``;
+    reported iterations include the coarse count."""
+    f64 = system64.dtype
+    dev = x_coarse.device
+    rtol = torch.as_tensor(residual_tolerance, dtype=f64, device=dev)
+    stol = torch.as_tensor(step_tolerance, dtype=f64, device=dev)
+    coarse_iterations = torch.as_tensor(coarse_iterations, dtype=torch.int32, device=dev)
+    refine_limit = torch.clamp(max_iterations - coarse_iterations, 0, REFINE_ITERATIONS)
+    state = _init_state(system64, x_coarse, initial_lambda,
+                        lam_dtype=system32.dtype, pars=pars64,
+                        deg_extra=coarse_deg)
+
+    def step(s: LMState):
+        jtj, jtr, deg_j = system32.refine_normal_equations(s.x, s.r, pars32)
+        d32, fail = damped_spd_solve(jtj, s.lam, -jtr)
+        return d32.to(f64), fail, deg_j
+
+    final, res_conv = _lm_while_loop(
+        state, lambda x: system64.residual_and_flags(x, pars64), step,
+        refine_limit, rtol, stol, boundary_parity=False)
+    refine_count = torch.where(
+        final.done, final.iterations,
+        torch.where(res_conv, final.it, refine_limit))
+    return LMResult(x=final.x, iterations=coarse_iterations + refine_count,
+                    converged=final.done | res_conv, deg=final.deg,
+                    residual=final.r)

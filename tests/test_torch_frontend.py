@@ -221,8 +221,8 @@ def test_planner_matches_reference_on_random_topologies(seed):
 
 
 def test_cuda_kind_enum_matches_registry():
-    """The CUDA kernel's kind switch is numbered in registry order."""
-    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fused_fleet.cu")).read()
+    """The CUDA kernels' kind switch is numbered in registry order."""
+    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fleet_common.cuh")).read()
     enum = re.findall(r"^\s*K_(\w+) = (\d+),", src, flags=re.M)
     assert [(name, int(i)) for name, i in enum] == [
         (name, i) for i, name in enumerate(KERNELS)]
@@ -231,20 +231,22 @@ def test_cuda_kind_enum_matches_registry():
 def test_cuda_capacities_match_build_module():
     from ezpz_tpu_torch.ops import _build
 
-    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fused_fleet.cu")).read()
+    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fleet_common.cuh")).read()
     caps = re.search(r"constexpr int CAPS\[\]\[2\] = \{(.*?)\};", src).group(1)
     assert tuple(tuple(int(v) for v in c) for c in
                  re.findall(r"\{(\d+), (\d+)\}", caps)) == _build.CAPACITIES
 
 
 def test_port_imports_no_jax():
-    """``import ezpz_tpu_torch`` (and every module of the slice) loads
+    """``import ezpz_tpu_torch`` (and every module of the port) loads
     neither jax nor the JAX package."""
     code = (
         "import sys\n"
         "import ezpz_tpu_torch, ezpz_tpu_torch.batch, ezpz_tpu_torch.textual\n"
         "import ezpz_tpu_torch.models.blocks, ezpz_tpu_torch.ops.fused_fleet\n"
         "import ezpz_tpu_torch.ops._build, ezpz_tpu_torch.ops.fleet_plan\n"
+        "import ezpz_tpu_torch.solver, ezpz_tpu_torch.ops.linalg\n"
+        "import ezpz_tpu_torch.ops.coarse_fleet\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"
         "assert not bad, bad\n"

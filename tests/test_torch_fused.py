@@ -81,7 +81,7 @@ def runs():
         assert js._fused_runs[B] is not None, "JAX must take its fused kernel"
         ts = TBatchSolver(tb.system, TConfig(), batch_params=True,
                           precision="mixed", pallas_fused=True,
-                          pallas_trips=ct, refine_trips=rt)
+                          pallas_trips=ct, refine_trips=rt, device="cpu")
         tout = ts.solve(torch.as_tensor(xb), tuple(torch.as_tensor(p) for p in pars))
         jr, _ = jax.vmap(lambda x, *p: jb.system.residual_and_flags(x, p))(
             jnp.asarray(jout.x), *[jnp.asarray(p) for p in pars])
@@ -169,26 +169,54 @@ def test_degenerate_and_nan_rows():
     x0[2, 3] = float("nan")
     pars = tuple(torch.as_tensor(b.par).expand(3, -1, -1) for b in system.blocks)
     out = TBatchSolver(system, TConfig(), batch_params=True, precision="mixed",
-                       pallas_fused=True).solve(x0, pars)
+                       pallas_fused=True, device="cpu").solve(x0, pars)
     assert out.degenerate[:2, 2].all() and not out.degenerate[:, :2].any()
     assert not out.satisfied[2, 2] and not out.converged[2]
 
 
 def test_unsupported_modes_raise():
+    """What the port still refuses: a kernel mode without per-sketch
+    parameters or in f64 (the JAX package asserts there too), an unknown
+    precision, ``solve_analysis`` (ROADMAP), and a non-f64 ``x0`` at the
+    kernel wrapper."""
     from ezpz_tpu_torch.models.compiled import compile_system
     from ezpz_tpu_torch.constraints import Constraint
 
     system = compile_system([Constraint.Fixed(0, 1.0)], n_vars=1)
-    for kw in (dict(), dict(batch_params=True, precision="mixed"),
+    for kw in (dict(precision="mixed", pallas_fused=True),
+               dict(precision="mixed", pallas_coarse=True),
                dict(batch_params=True, precision="f64", pallas_fused=True),
-               dict(precision="mixed", pallas_fused=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TBatchSolver(system, TConfig(), **kw)
+               dict(batch_params=True, precision="f64", pallas_coarse=True),
+               dict(precision="f32")):
+        with pytest.raises(ValueError):
+            TBatchSolver(system, TConfig(), device="cpu", **kw)
     solver = TBatchSolver(system, TConfig(), batch_params=True,
-                          precision="mixed", pallas_fused=True)
+                          precision="mixed", pallas_fused=True, device="cpu")
     x0 = torch.zeros((2, 1), dtype=torch.float64)
     pars = (torch.ones((2, 1, 1), dtype=torch.float64),)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.solve(x0, pars, finish_stragglers=True)
+        solver.solve_analysis(x0, pars)
+    with pytest.raises(ValueError):
+        solver.solve(x0)
     with pytest.raises(ValueError):
         fused_fleet_solve(plan_fleet(system), x0.float(), pars, **solver.settings())
+
+
+def test_default_device_is_the_card():
+    """Without ``device``, ``BatchSolver`` solves on the GPU; on a machine
+    without one it raises instead of answering on the CPU."""
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.constraints import Constraint
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: tests/test_torch_cuda.py covers it")
+    system = compile_system([Constraint.Fixed(0, 1.0)], n_vars=1)
+    x0 = np.zeros((2, 1))
+    pars = (np.ones((2, 1, 1)),)
+    for kw in (dict(), dict(precision="mixed"),
+               dict(batch_params=True, precision="mixed", pallas_coarse=True),
+               dict(batch_params=True, precision="mixed", pallas_fused=True)):
+        solver = TBatchSolver(system, TConfig(), **kw)
+        assert solver.device == torch.device("cuda")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            solver.solve(x0, pars)

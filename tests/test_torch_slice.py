@@ -1,19 +1,28 @@
 """The whole slice on ``massive_parallel_system`` at M = 1 copy, against
-the ``bench.py`` path in JAX.
+the ``bench.py`` paths in JAX.
 
 Both packages parse the fixture text, build buckets and solve each bucket
-with ``BatchSolver(batch_params=True, precision="mixed",
-pallas_fused=True, pallas_trips=3, refine_trips=2)`` from the guesses
-offset by 11e-9 (bench.py's warm-up offset on a one-dispatch chain). The
-JAX side runs its fused Pallas kernel in interpret mode.
+from the guesses offset by 11e-9 (bench.py's warm-up offset on a
+one-dispatch chain), once per path:
+
+* ``fused``: ``BatchSolver(batch_params=True, precision="mixed",
+  pallas_fused=True, pallas_trips=3, refine_trips=2)`` (bench.py's
+  default);
+* ``coarse``: ``BatchSolver(batch_params=True, precision="mixed",
+  pallas_coarse=True, pallas_fused=False, pallas_trips=3)`` (bench.py's
+  ``BENCH_FUSED=0``): the coarse kernel, then the batched f64-residual
+  refinement.
+
+The JAX side runs its Pallas kernels in interpret mode.
 
 What must hold: the bench gate in both packages (every lane converged and
 satisfied, f64 residual <= 1e-8, recomputed outside the solver); equal
 degenerate flags; iterations equal or off by one (double-single against
-native f64 rounding in the refine phase); coordinates within 1e-6 (the
-fixture is fully constrained); and the solved global vector, scattered
-back through ``var_index``, passes the gate on the whole 2400-variable
-system compiled by the port.
+native f64 rounding in the fused refine phase; XLA's fused f32 rounding
+against the port's in the coarse path's refine); coordinates within 1e-6
+(the fixture is fully constrained); and the solved global vector,
+scattered back through ``var_index``, passes the gate on the whole
+2400-variable system compiled by the port.
 """
 
 import numpy as np
@@ -36,8 +45,12 @@ from ezpz_tpu_torch.textual import Problem as TProblem
 from .test_torch_frontend import fixture_text
 
 OFFSET = 11e-9
-SOLVER_ARGS = dict(batch_params=True, precision="mixed", pallas_fused=True,
-                   pallas_trips=3, refine_trips=2)
+PATHS = {
+    "fused": dict(batch_params=True, precision="mixed", pallas_fused=True,
+                  pallas_trips=3, refine_trips=2),
+    "coarse": dict(batch_params=True, precision="mixed", pallas_coarse=True,
+                   pallas_fused=False, pallas_trips=3),
+}
 
 
 def _guesses(cs):
@@ -47,8 +60,9 @@ def _guesses(cs):
     return x0
 
 
-@pytest.fixture(scope="module")
-def slice_runs():
+@pytest.fixture(scope="module", params=list(PATHS))
+def slice_runs(request):
+    args = PATHS[request.param]
     txt = fixture_text("massive_parallel_system")
     tcs = TProblem.from_str(txt).to_constraint_system()
     jcs = JProblem.from_str(txt).to_constraint_system()
@@ -60,10 +74,10 @@ def slice_runs():
     runs = []
     for tb, jb in zip(tbk, jbk):
         xb = x0[tb.var_index] + OFFSET
-        jout = JBatchSolver(jb.system, JConfig(), **SOLVER_ARGS).solve(
+        jout = JBatchSolver(jb.system, JConfig(), **args).solve(
             jnp.asarray(xb), tuple(jnp.asarray(p) for p in jb.pars))
         tpars = tuple(torch.as_tensor(p) for p in tb.pars)
-        tout = TBatchSolver(tb.system, TConfig(), **SOLVER_ARGS).solve(
+        tout = TBatchSolver(tb.system, TConfig(), device="cpu", **args).solve(
             torch.as_tensor(xb), tpars)
         r, _deg = tb.system.residual_and_flags(tout.x, tpars)
         jr, _ = jax.vmap(lambda x, *p: jb.system.residual_and_flags(x, p))(
