@@ -9,18 +9,27 @@ Phases (any failure exits non-zero before the result line):
    no GPU, no run;
 2. build the fleet kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``)
    with nvcc, one compiler per source, and print each instantiation's
-   registers, stack frame and spills;
+   registers, stack frame and spills, and its resident threads per SM;
 3. the fused kernel against its plain PyTorch version on the card, on every
-   bucket of every corpus fixture plus ``rect_chain(8)``: 4096 seeded
-   perturbations (sigma 1e-3) of the guesses each; converged, satisfied
-   and degenerate must be equal lane for lane, iterations equal on at
-   least 99.9% of lanes, coordinates within 1e-6 where both converged;
-3b. on the same 37 topologies and lanes: the coarse kernel against its
+   bucket of every corpus fixture plus ``rect_chain(8)`` (37 topologies)
+   and three big ones the kernel gate admits: ``chain(40)`` (80
+   variables), ``chain(128)`` (256 instances, the gate's edge) and
+   ``rect_chain(42)`` (254 instances): 4096 seeded perturbations
+   (sigma 1e-3) of the guesses each; converged, satisfied and degenerate
+   must be equal lane for lane, iterations equal on at least 99.9% of
+   lanes, coordinates within 1e-6 where both converged;
+3b. on the same 40 topologies and lanes: the coarse kernel against its
    plain version (iterations, converged and degenerate equal lane for
    lane, coordinates within 1e-6, bit equality reported), and the whole
    coarse path (``BatchSolver(pallas_coarse=True, pallas_fused=False)``:
    kernel, then the batched f64-residual refinement) against the same path
    with the plain coarse version, as in phase 3;
+3c. each kernel alone (CUDA events, median of 5) on the topologies above
+   the main path's shapes that the big-topology kernel takes (``square``
+   and ``chamfer_square`` of the corpus, ``rect_chain(8)``, ``chain(40)``)
+   and on two that ``<8,8>`` takes (``parallelogram``, ``arc_length``), at
+   MIDSIZE_B seeded perturbations each (``MIDSIZE``; ``phase3c`` also runs
+   alone, on any checkout whose package has the same wrappers);
 4. the fused main path of ``bench.py`` through the port: the
    ``massive_parallel_system`` fixture at 8192 copies (9.8 M one-variable
    and 4.9 M two-variable sketches) via ``Problem.from_str`` ->
@@ -28,8 +37,9 @@ Phases (any failure exits non-zero before the result line):
    precision="mixed", pallas_fused=True, pallas_trips=3,
    refine_trips=2).solve`` on CUDA tensors. Every lane converged and
    satisfied, the f64 residual recomputed by ``residual_and_flags`` <=
-   1e-8, the kernel launched; then 5 timed reps with fresh inputs for the
-   kernel and for the plain version;
+   1e-8, the kernel launched; then 5 timed reps with fresh inputs of the
+   kernel alone (inputs made before the first event), of the plain
+   version, and of the whole ``solve`` call;
 5. the coarse main path (``bench.py``'s ``BENCH_FUSED=0``): the same
    fixture and copies through ``BatchSolver(..., precision="mixed",
    pallas_coarse=True, pallas_fused=False, pallas_trips=3).solve``. The
@@ -58,7 +68,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 COPIES = 8192
 REPS = 5
+INNER = 4
 PHASE3_B = 4096
+MIDSIZE_B = 262144
+MIDSIZE = ("arc_length[0]", "chamfer_square[0]", "parallelogram[0]", "square[0]",
+           "rect_chain(8)[0]", "chain(40)[0]")
 X_TOL = 1e-6
 ITER_EQUAL_MIN = 0.999
 # NVIDIA H100 SXM data sheet: memory rate, f32 and f64 rates outside the
@@ -82,10 +96,11 @@ def ptxas_summary(log_path):
         return []
     out, name = [], None
     for line in open(log_path):
-        m = re.search(r"Compiling entry function '.*(fused|coarse)_fleet_kernelILi(\d+)ELi(\d+)E",
-                      line)
+        m = re.search(r"Compiling entry function '.*?(fused|coarse)_(small|big)_kernel"
+                      r"(?:ILi(\d+)ELi(\d+)E)?", line)
         if m:
-            name = f"{m.group(1)}_fleet_kernel<{m.group(2)},{m.group(3)}>"
+            shape = f"<{m.group(3)},{m.group(4)}>" if m.group(3) else ""
+            name = f"{m.group(1)}_{m.group(2)}_kernel{shape}"
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
@@ -130,8 +145,26 @@ def rect_chain(R):
     return cons, np.array([c for p in guess for c in p])
 
 
+def chain(n_points):
+    """A pinned chain of unit distances along x (tests/test_torch_cuda.py):
+    2 n_points variables, 2 n_points instances."""
+    import numpy as np
+
+    from ezpz_tpu_torch import Constraint, DatumLineSegment, DatumPoint
+
+    pts = [DatumPoint(2 * i, 2 * i + 1) for i in range(n_points)]
+    cons = [Constraint.Fixed(0, 0.0), Constraint.Fixed(1, 0.0)]
+    x0 = np.zeros(2 * n_points)
+    for i in range(1, n_points):
+        cons.append(Constraint.Distance(pts[i - 1], pts[i], 1.0))
+        cons.append(Constraint.Horizontal(DatumLineSegment(pts[i - 1], pts[i])))
+        x0[2 * i] = i + 0.01 * (-1) ** i
+    return cons, x0
+
+
 def topologies():
-    """(label, constraints, x0) for every corpus fixture and rect_chain(8)."""
+    """(label, constraints, x0) for every corpus fixture, rect_chain(8), and
+    the big topologies at and below the kernel gate's edge."""
     from ezpz_tpu_torch.textual import Problem
 
     cases = os.path.join(HERE, "tests", "cases")
@@ -145,11 +178,16 @@ def topologies():
         yield name, [r.constraint.set_from_initial_values(x0) for r in cs.constraints], x0
     cons, x0 = rect_chain(8)
     yield "rect_chain(8)", cons, x0
+    for k in (40, 128):
+        cons, x0 = chain(k)
+        yield f"chain({k})", cons, x0
+    cons, x0 = rect_chain(42)
+    yield "rect_chain(42)", cons, x0
 
 
-def fleets(dev):
-    """(label, bucket, x (PHASE3_B, n) and pars on ``dev``) for every bucket
-    of every topology, from one seed sequence."""
+def fleets(dev, B=PHASE3_B, labels=None):
+    """(label, bucket, x (B, n) and pars on ``dev``) for every bucket of
+    every topology (or those named in ``labels``), from one seed sequence."""
     import numpy as np
     import torch
 
@@ -160,12 +198,15 @@ def fleets(dev):
         for bi, b in enumerate(build_buckets(cons, len(x0))):
             rng = np.random.default_rng(seed)
             seed += 1
-            k = np.arange(PHASE3_B) % len(b.components)
+            label = f"{name}[{bi}]"
+            if labels is not None and label not in labels:
+                continue
+            k = np.arange(B) % len(b.components)
             xb = torch.as_tensor(
-                x0[b.var_index[k]] + rng.normal(0, 1e-3, (PHASE3_B, b.system.n_vars)),
+                x0[b.var_index[k]] + rng.normal(0, 1e-3, (B, b.system.n_vars)),
                 device=dev)
             pars = tuple(torch.as_tensor(np.asarray(p)[k], device=dev) for p in b.pars)
-            yield f"{name}[{bi}]", b, xb, pars
+            yield label, b, xb, pars
 
 
 def compare(out, ref):
@@ -248,6 +289,14 @@ def as_tuple(res):
     return (res.x, res.iterations, res.converged, res.satisfied, res.degenerate)
 
 
+def route(plan):
+    """Which instantiation takes ``plan``."""
+    from ezpz_tpu_torch.ops import _build
+
+    shape = _build.small_shape(plan)
+    return f"small<{shape[0]},{shape[1]}>" if shape else "big"
+
+
 def phase3(dev):
     import torch
 
@@ -260,7 +309,7 @@ def phase3(dev):
         torch.cuda.synchronize()
         ref = fused_fleet.fused_fleet_reference(solver.plan, xb, pars, **solver.settings())
         c = compare(out, ref)
-        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows)
+        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows, kernel=route(solver.plan))
         check(f"phase3 {label}", c)
         n_topologies += 1
     print(f"phase3 ok: {n_topologies} topologies, 0 flag mismatches", flush=True)
@@ -279,13 +328,28 @@ def phase3b(dev):
         ref = coarse_fleet.coarse_fleet_reference(solver.plan, xb, pars,
                                                   **solver.coarse_settings())
         c = compare_coarse(out, ref)
-        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows)
+        c.update(n_vars=b.system.n_vars, rows=b.system.n_rows, kernel=route(solver.plan))
         check_coarse(f"phase3b kernel {label}", c)
         path = solver.solve(xb, pars)
         plain = solver.refine(ref[0], ref[1], ref[3], pars)
         check(f"phase3b path {label}", compare(as_tuple(path), as_tuple(plain)))
         n_topologies += 1
     print(f"phase3b ok: {n_topologies} topologies, 0 flag mismatches", flush=True)
+
+
+def phase3c(dev, card, labels=MIDSIZE):
+    """Each kernel alone on the mid-size topologies ``labels``, MIDSIZE_B
+    lanes each: ms per solve (``kernel_ms``) and ns per lane."""
+    for label, b, xb, pars in fleets(dev, MIDSIZE_B, labels):
+        solvers = [(fused_solver(b.system), xb, pars)]
+        fms = kernel_ms(solvers, "fused")
+        solvers = [(coarse_solver(b.system), xb, pars)]
+        cms = kernel_ms(solvers, "coarse")
+        print(f"phase3c {label} n_vars={b.system.n_vars} rows={b.system.n_rows} "
+              f"lanes={MIDSIZE_B}: fused kernel alone {fms!r} ms "
+              f"({fms * 1e6 / MIDSIZE_B!r} ns/lane), coarse kernel alone {cms!r} ms "
+              f"({cms * 1e6 / MIDSIZE_B!r} ns/lane) (CUDA events around {INNER} solves on "
+              f"inputs made before, median of {REPS}); card: {card}", flush=True)
 
 
 def massive(dev, make_solver):
@@ -384,13 +448,28 @@ def step_ops(plan):
     return jac + factor + solve + 3 * plan.n_vars, 3 * plan.n_rows
 
 
+def table_bytes(plan):
+    """Bytes of the topology tables the routed instantiation reads: the
+    fields of SmallTopo<NV, NI> (csrc/fleet_common.cuh) for an exact
+    shape, ``FleetPlan.big_tables`` for the big-topology kernel."""
+    from ezpz_tpu_torch.ops import _build
+    from ezpz_tpu_torch.ops.fleet_plan import KI_SLOTS
+
+    shape = _build.small_shape(plan)
+    if shape is None:
+        return sum(a.nbytes for a in plan.big_tables())
+    nv, ni = shape
+    # inst[NI][KI_SLOTS], w32[NI], w64[NI], perm[NV], fill, n, n_cons, P
+    return ni * (4 * KI_SLOTS + 4 + 8) + 4 * nv + 8 + 3 * 4
+
+
 def bound_ms(kind, solvers, outs):
     """The least time the card could take for one main-path solve of a
     kernel: the larger of its bytes (inputs read once, outputs written
-    once, plan tables included) over the memory rate and a lower bound of
-    its operations (``step_ops`` times this run's steps per lane: at least
-    the reported iterations) over the f32 and f64 rates. Returns (ms,
-    "bytes" or "operations")."""
+    once, the topology tables the kernel reads included) over the memory
+    rate and a lower bound of its operations (``step_ops`` times this
+    run's steps per lane: at least the reported iterations) over the f32
+    and f64 rates. Returns (ms, "bytes" or "operations")."""
     nbytes, f32_ops, f64_ops = 0, 0, 0
     for (s, xb, _pb), o in zip(solvers, outs):
         plan = s.plan
@@ -400,9 +479,7 @@ def bound_ms(kind, solvers, outs):
             per_lane_out = 4 * n + 4 + 1 + plan.n_constraints
         else:
             per_lane_out = 8 * n + 4 + 1 + 2 * plan.n_constraints
-        tables = plan.inst.nbytes + plan.w32.nbytes + plan.w64.nbytes + 2 * plan.perm.nbytes \
-            + plan.nzl.nbytes
-        nbytes += B * (per_lane_in + per_lane_out) + tables
+        nbytes += B * (per_lane_in + per_lane_out) + table_bytes(plan)
         steps = int(o[1].sum())
         jac_ops, res_ops = step_ops(plan)
         f32_ops += steps * jac_ops + B * plan.n_rows
@@ -459,10 +536,14 @@ def phase4(dev, card):
     bound, bound_by = bound_ms("fused", solvers, [as_tuple(o) for o in outs])
     del outs, plains
 
-    kw, (kms,), kwalls = timed(around(dispatch))
-    pw, (pms,), pwalls = timed(around(dispatch_plain))
-    report("phase4 kernel", kw, kms, kwalls, sketches, card)
-    report("phase4 plain", pw, pms, pwalls, sketches, card)
+    kms = kernel_ms(solvers, "fused")
+    pms = kernel_ms(solvers, "fused", plain=True)
+    sw, (sms,), swalls = timed(around(dispatch))
+    print(f"phase4 kernel alone {kms!r} ms, plain version alone {pms!r} ms per main-path "
+          f"solve (CUDA events around {INNER} solves on inputs made before, median of "
+          f"{REPS}); card: {card}", flush=True)
+    report("phase4 path (solve calls, input offsets included)", sw, sms, swalls,
+           sketches, card)
     return dict(launches=launches, max_abs_err=err, ms=kms, plain_ms=pms,
                 bound_ms=bound, bound_by=bound_by)
 
@@ -541,8 +622,51 @@ def phase5(dev, card):
     print(f"phase5 split: coarse kernel {cms!r} ms, refine {rms!r} ms; plain coarse "
           f"{qcms!r} ms, refine {qrms!r} ms (CUDA events, median of {REPS}); card: {card}",
           flush=True)
-    return dict(launches=launches, max_abs_err=err, ms=cms, plain_ms=qcms,
+    kms = kernel_ms(solvers, "coarse")
+    kpms = kernel_ms(solvers, "coarse", plain=True)
+    print(f"phase5 coarse kernel alone {kms!r} ms, plain version alone {kpms!r} ms per "
+          f"main-path solve (CUDA events around {INNER} solves on inputs made before, "
+          f"median of {REPS}); card: {card}", flush=True)
+    return dict(launches=launches, max_abs_err=err, ms=kms, plain_ms=kpms,
                 bound_ms=bound, bound_by=bound_by)
+
+
+def kernel_ms(solvers, entry, plain=False):
+    """Median ms per main-path solve of one kernel (or its plain version)
+    alone: CUDA events around INNER solves of every bucket, on inputs made
+    before the first event (fresh per solve), so the host's enqueue gaps
+    between launches are amortized."""
+    from ezpz_tpu_torch.ops import coarse_fleet, fused_fleet
+
+    if entry == "fused":
+        run = fused_fleet.fused_fleet_reference if plain else fused_fleet.fused_fleet_solve
+    else:
+        run = coarse_fleet.coarse_fleet_reference if plain else coarse_fleet.coarse_fleet_solve
+
+    def body(k, ev):
+        inputs = [(s, xb + (INNER * k + j) * 1e-9, pb) for j in range(INNER)
+                  for s, xb, pb in solvers]
+        ev[0].record()
+        for s, x, pb in inputs:
+            run(s.plan, x, pb, **(s.settings() if entry == "fused" else s.coarse_settings()))
+        ev[1].record()
+    return timed(body)[1][0] / INNER
+
+
+def occupancy_lines():
+    """Resident threads per SM of every instantiation (the big kernel
+    with the shared memory of the gate's 256 instances)."""
+    from ezpz_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    out = []
+    for entry in ("fused", "coarse"):
+        for shape in (*_build.SMALL_SHAPES, None):
+            threads = _build.resident_threads(lib, entry, shape, n_inst=256)
+            name = (f"{entry}_small_kernel<{shape[0]},{shape[1]}>" if shape
+                    else f"{entry}_big_kernel (256 instances)")
+            out.append(f"{name}: {threads} resident threads per SM")
+    return out
 
 
 def main() -> int:
@@ -571,9 +695,12 @@ def main() -> int:
           flush=True)
     for line in ptxas_summary(str(so) + ".log"):
         print("phase2 ptxas " + line, flush=True)
+    for line in occupancy_lines():
+        print("phase2 occupancy " + line, flush=True)
 
     phase3(dev)
     phase3b(dev)
+    phase3c(dev, card)
     fused = phase4(dev, card)
     coarse = phase5(dev, card)
     kernels = []

@@ -14,9 +14,14 @@ sketch running its own Levenberg-Marquardt loop. The modes:
   (``ops/fused_fleet``).
 
 The kernel modes need ``precision="mixed"`` and ``batch_params=True`` (the
-JAX package asserts the same). A kernel wrapper launches its CUDA kernel on
-a CUDA tensor and takes its plain PyTorch version on a CPU tensor; the
-solver runs on ``device``, the card unless the caller asks for the CPU.
+JAX package asserts the same). They take a topology only when the kernel
+gate admits it (``fleet_plan.kernel_admits``: at most 256 instances, a
+planned fill of at most 2080, as the JAX package's
+``_pallas_topology_ok``); any other topology is routed, before any launch,
+to the batched mixed path, as the JAX package routes it to its XLA path. A
+kernel wrapper launches its CUDA kernel on a CUDA tensor and takes its
+plain PyTorch version on a CPU tensor; the solver runs on ``device``, the
+card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 from .config import Config
 from .models.compiled import CompiledSystem
 from .ops.coarse_fleet import coarse_fleet_solve
-from .ops.fleet_plan import plan_fleet
+from .ops.fleet_plan import kernel_admits, plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
 from .solver import (COARSE_TOLERANCE, LMResult, solve_lm, solve_lm_mixed,
                      solve_lm_refine)
@@ -102,7 +107,9 @@ class BatchSolver:
         self.pallas_trips = pallas_trips
         self.refine_trips = refine_trips
         self.device = torch.device("cuda" if device is None else device)
-        self.plan = plan_fleet(system) if pallas_coarse else None
+        # Topology routing: the kernels take what their gate admits.
+        self.kernel_ok = pallas_coarse and kernel_admits(system)
+        self.plan = plan_fleet(system) if self.kernel_ok else None
         # With strictly positive weights, satisfaction comes from the final
         # weighted residual (no extra evaluation).
         self._fast_sat = system.all_weights_positive()
@@ -209,14 +216,15 @@ class BatchSolver:
 
         ``finish_stragglers`` (kernel modes only): lanes the fixed-trip
         kernel leaves unconverged are re-solved through the plain mixed path
-        and merged."""
+        and merged. A topology outside the kernel gate takes the batched
+        mixed path in the kernel modes too."""
         x0, pars = self._inputs(x0, pars)
+        if not self.kernel_ok:
+            return self._solve_plain(x0, pars)
         if self.pallas_fused:
             out = BatchResult(*fused_fleet_solve(self.plan, x0, pars, **self.settings()))
-        elif self.pallas_coarse:
-            out = self.refine(*self.coarse(x0, pars), pars)
         else:
-            return self._solve_plain(x0, pars)
+            out = self.refine(*self.coarse(x0, pars), pars)
         if finish_stragglers:
             out = self._finish_stragglers(out, x0, pars)
         return out

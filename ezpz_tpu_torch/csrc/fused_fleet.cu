@@ -8,129 +8,118 @@
 // with double-single arithmetic; the H100 has f64, so this kernel does not).
 //
 // What bounds it on the H100: the main path's sketches are tiny (1 or 2
-// variables, 1 or 2 residual rows), so a sketch is a few hundred flops and
-// 8-24 bytes of input per trip budget. The work is latency-bound per thread
-// (long dependent chains: Jacobian, factorization, solve, re-evaluation) and
-// the kernel as a whole is bound by reading x0/pars and writing x and the
-// flags once (~40 bytes per sketch), far below the 3.35 TB/s the card offers.
-// Larger topologies are bound by per-thread local memory: the factor of an
-// n-variable sketch is n(n+1)/2 floats.
+// variables, 1 or 2 residual rows), a few hundred flops each, against ~31
+// and ~49 bytes read and written per sketch: the card's memory rate bounds
+// the kernel (~0.16 ms per main-path solve). What keeps it from that bound
+// is per-thread latency: every lane is a serial chain of 2-5 LM trips
+// (Jacobian, factor, solve, re-evaluation), so the card needs many
+// resident lanes whose state needs no memory round trip.
 //
-// What the design does about it:
-//   * one thread per sketch, no inter-thread communication; the sketch's
-//     whole state (x, residual rows, packed factor, lambda, counters, flag
-//     words) lives in registers or local memory, and the loop exits per
-//     lane as soon as the lane is done (trips on a done lane change nothing);
-//   * table-driven: one build serves every topology. The host uploads the
-//     instance table (kind, var ids, parameter offset, weight, constraint
-//     id), the planned elimination order and the factor's fill mask; all
-//     threads read the same table entries (broadcast loads);
-//   * a few compile-time capacities (CAPS in fleet_common.cuh) size the
-//     local arrays; the host picks the smallest that holds the topology,
-//     so the 1- and 2-variable main-path buckets run with tiny frames;
-//   * Jacobian columns by forward-mode dual numbers (one tangent per
-//     instance variable, as jax.jvp with one-hot tangents does in the TPU
-//     kernel), with derivative formulas written as torch's forward-mode
-//     rules so the plain PyTorch version agrees operation for operation.
-//
-// Phase 1 is coarse_phase of fleet_common.cuh, which the coarse kernel
-// (coarse_fleet.cu) runs on its own.
+// What the design does about it (fleet_common.cuh):
+//   * exact-shape instantiations (SMALL_SHAPES: 1x1, 2x2, 4x4, 8x8
+//     variables x instances) keep the whole lane in registers: no local
+//     memory arrays, row slots fixed per instance, variable ids resolved by
+//     unrolled selects, the topology in the kernel's parameter space;
+//   * each lane's parameters are read from memory once, before the trips;
+//   * the Jacobian of an instance takes one dual-number evaluation that
+//     carries all of its tangents;
+//   * every other topology the kernel gate admits (<= 256 instances, a
+//     planned fill <= 2080) takes fused_big_kernel: the instance table in
+//     shared memory, loaded once per block, the lane state in
+//     lane-interleaved scratch from the wrapper, the Crout factorization
+//     as the planner's schedule of nonzero updates.
+// Tensor cores, wgmma and TMA do not apply: a lane's system has 1-64
+// variables and no two lanes share an operand tile.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
-// (IEEE division and sqrt, no FMA contraction: the f32 phase stays
-// comparable with the plain version). The C entry points return the
-// cudaError_t of the launch.
+// (IEEE division and sqrt, no FMA contraction: the kernel stays
+// comparable with the plain version bit for bit). The C entry points
+// return the cudaError_t of the launch.
 
 #include "fleet_common.cuh"
 
 namespace {
 
-template <int N, int R>
-__global__ void __launch_bounds__(128)
-fused_fleet_kernel(const double* __restrict__ x0, const double* __restrict__ par,
-                   int B, Topo t, Settings s, double* __restrict__ x_out,
-                   int* __restrict__ it_out, uint8_t* __restrict__ conv_out,
-                   uint8_t* __restrict__ sat_out, uint8_t* __restrict__ deg_out) {
-  constexpr int W = (R + 31) / 32;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  const int n = t.n, m = t.m;
-  const double* p64 = par + (size_t)lane * t.P;
+struct Outputs {
+  double* x;
+  int* it;
+  uint8_t* conv;
+  uint8_t* sat;
+  uint8_t* deg;
+};
 
-  float x[N], xn[N], step[N], jtr[N], y[N];
-  float r[R], rn[R];
-  float A[N * (N + 1) / 2];
-  uint32_t deg[W], dj[W], dr[W];
-
-  // ---- phase 1: f32 LM toward the per-lane coarse tolerance
+template <class L>
+__device__ __forceinline__ void fused_lane(L& l, const Settings& s, int lane, int n,
+                                           const Outputs& o) {
   float lam;
-  int coarse_its;
-  coarse_phase<W>(t, s, x0 + (size_t)lane * n, p64, x, xn, step, jtr, y, r,
-                  rn, A, deg, dj, dr, lam, coarse_its);
-  const int refine_limit = min(max(s.max_it - coarse_its, 0), s.refine_trips);
-
-  // ---- phase 2: f64 residuals, f32 steps, from exactly the coarse point
-  double xd[N], xnd[N], rd[R], rnd[R];
-  uint32_t unsat[W], unsat_n[W];
-  for (int j = 0; j < n; ++j) xd[j] = double(x[j]);
-  residual_rows<double, W>(t, xd, p64, rd, dr, unsat);
-  for (int w = 0; w < W; ++w) deg[w] |= dr[w];
-  double r2d = rows_sumsq(rd, m);
-  int cnt = 0;
-  bool done = false;
-  for (int trip = 0; trip < s.refine_trips; ++trip) {
-    if (rows_max_abs(rd, m) <= s.rtol) {
-      done = true;
-      break;
-    }
-    if (cnt >= refine_limit) break;  // inactive from here on
-    for (int j = 0; j < n; ++j) x[j] = float(xd[j]);
-    for (int i = 0; i < m; ++i) r[i] = float(rd[i]);
-    normal_equations<W>(t, x, p64, r, A, jtr, dj);
-    const bool fail = damped_solve(t, A, jtr, lam, step, y);
-    float step_inf = fabsf(step[0]);
-    for (int j = 1; j < n; ++j) step_inf = nmax(step_inf, fabsf(step[j]));
-    for (int j = 0; j < n; ++j) xnd[j] = xd[j] + double(step[j]);
-    residual_rows<double, W>(t, xnd, p64, rnd, dr, unsat_n);
-    const double r2n = rows_sumsq(rnd, m);
-    const bool accept = !fail && r2n < r2d;
-    if (accept) {
-      for (int j = 0; j < n; ++j) xd[j] = xnd[j];
-      for (int i = 0; i < m; ++i) rd[i] = rnd[i];
-      for (int w = 0; w < W; ++w) unsat[w] = unsat_n[w];
-      r2d = r2n;
-      lam = lam * s.decr;
-    } else {
-      lam = lam * s.incr;
-    }
-    for (int w = 0; w < W; ++w) deg[w] |= dj[w] | dr[w];
-    ++cnt;
-    if (!fail && step_inf <= s.stol) {
-      done = true;
-      break;
-    }
+  int coarse_its, cnt;
+  coarse_phase(l, s, lam, coarse_its);
+  typename L::FlagT unsat;
+  const bool converged = refine_phase(l, s, lam, coarse_its, cnt, unsat);
+#pragma unroll
+  for (int k = 0; k < l.n; ++k) {
+    const int j = l.out_col(k);
+    if (j >= 0) o.x[(size_t)lane * n + j] = l.xd.get(k);
   }
-  const bool converged = (rows_max_abs(rd, m) <= s.rtol) || done;
-
-  for (int j = 0; j < n; ++j) x_out[(size_t)lane * n + j] = xd[j];
-  it_out[lane] = coarse_its + cnt;
-  conv_out[lane] = converged ? 1 : 0;
-  for (int c = 0; c < t.n_cons; ++c) {
-    const uint32_t bit = 1u << (c & 31);
-    sat_out[(size_t)lane * t.n_cons + c] = (unsat[c >> 5] & bit) ? 0 : 1;
-    deg_out[(size_t)lane * t.n_cons + c] = (deg[c >> 5] & bit) ? 1 : 0;
+  o.it[lane] = coarse_its + cnt;
+  o.conv[lane] = converged ? 1 : 0;
+  const int nc = l.n_cons();
+  for (int c = 0; c < nc; ++c) {
+    o.sat[(size_t)lane * nc + c] = unsat.test(c) ? 0 : 1;
+    o.deg[(size_t)lane * nc + c] = l.deg.test(c) ? 1 : 0;
   }
 }
 
-template <int N, int R>
-int launch(const double* x0, const double* par, int B, const Topo& t,
-           const Settings& s, double* x_out, int* it_out, uint8_t* conv_out,
-           uint8_t* sat_out, uint8_t* deg_out, cudaStream_t stream) {
-  if (t.n > N || t.m > R || t.n_inst > R || t.n_cons > R) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  fused_fleet_kernel<N, R><<<blocks, threads, 0, stream>>>(
-      x0, par, B, t, s, x_out, it_out, conv_out, sat_out, deg_out);
+template <int NV, int NI>
+__global__ void __launch_bounds__(THREADS, NV <= 2 ? SMALL_MIN_BLOCKS : 1)
+fused_small_kernel(const double* __restrict__ x0, const double* __restrict__ par, int B,
+                   const __grid_constant__ SmallTopo<NV, NI> t, const Settings s,
+                   const Outputs o) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  SmallLane<NV, NI> l(t, x0 + (size_t)lane * t.n, par + (size_t)lane * t.P);
+  fused_lane(l, s, lane, t.n, o);
+}
+
+__global__ void __launch_bounds__(THREADS)
+fused_big_kernel(const double* __restrict__ x0, const double* __restrict__ par, int B,
+                 const __grid_constant__ BigTopo g, const Settings s, float* fscr,
+                 double* dscr, const Outputs o) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int* inst;
+  const float* w32;
+  const double* w64;
+  load_shared_topology(g, smem, &inst, &w32, &w64);
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  BigLane l(g, inst, w32, w64, x0 + (size_t)lane * g.n, par + (size_t)lane * g.P, fscr,
+            dscr, lane, B, true);
+  fused_lane(l, s, lane, g.n, o);
+}
+
+template <int NV, int NI>
+int launch_small(const double* x0, const double* par, int B, int n, int n_cons, int P,
+                 const int* inst, int n_inst, const float* w32, const double* w64,
+                 const int* perm, unsigned long long fill, const Settings& s,
+                 const Outputs& o, cudaStream_t stream) {
+  if (n > NV || n_inst > NI || n_cons > 32) return (int)cudaErrorInvalidValue;
+  SmallTopo<NV, NI> t{};
+  for (int i = 0; i < NI; ++i) {
+    for (int c = 0; c < KI_SMALL; ++c) t.inst[i][c] = i < n_inst ? inst[i * KI_COLS + c] : 0;
+    if (i >= n_inst) t.inst[i][KI_KIND] = -1;
+    t.w32[i] = i < n_inst ? w32[i] : 0.0f;
+    t.w64[i] = i < n_inst ? w64[i] : 0.0;
+  }
+  t.fill = fill;
+  for (int k = 0; k < NV; ++k) {
+    t.perm[k] = k < n ? perm[k] : -1;
+    if (k >= n) t.fill |= 1ull << tri(k, k);
+  }
+  t.n = n;
+  t.n_cons = n_cons;
+  t.P = P;
+  const int blocks = (B + THREADS - 1) / THREADS;
+  fused_small_kernel<NV, NI><<<blocks, THREADS, 0, stream>>>(x0, par, B, t, s, o);
   return (int)cudaGetLastError();
 }
 
@@ -138,10 +127,10 @@ int launch(const double* x0, const double* par, int B, const Topo& t,
 
 extern "C" {
 
-int ezpz_fused_fleet_capacity(int idx, int* n_max, int* rows_max) {
-  if (idx < 0 || idx >= N_CAPS) return 1;
-  *n_max = CAPS[idx][0];
-  *rows_max = CAPS[idx][1];
+int ezpz_small_shape(int idx, int* nv, int* ni) {
+  if (idx < 0 || idx >= N_SMALL) return 1;
+  *nv = SMALL_SHAPES[idx][0];
+  *ni = SMALL_SHAPES[idx][1];
   return 0;
 }
 
@@ -149,30 +138,89 @@ const char* ezpz_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int ezpz_fused_fleet(int n_max, int rows_max, const double* x0, const double* par,
-                     int B, int n, int m, int n_cons, int P, const int* inst,
-                     int n_inst, const float* w32, const double* w64,
-                     const int* perm, const int* inv, const uint8_t* nzl,
-                     int coarse_trips, int refine_trips, int max_it, float ctol,
-                     float cstol, float stol, double rtol, float lam0, float decr,
-                     float incr, double* x_out, int* it_out, uint8_t* conv_out,
-                     uint8_t* sat_out, uint8_t* deg_out, void* stream) {
+// Small path: inst (n_inst, KI_COLS), w32, w64 and perm are HOST arrays,
+// copied into the kernel's parameters.
+int ezpz_fused_fleet_small(int nv, int ni, const double* x0, const double* par, int B, int n,
+                           int n_cons, int P, const int* inst, int n_inst, const float* w32,
+                           const double* w64, const int* perm, unsigned long long fill,
+                           int coarse_trips, int refine_trips, int max_it, float ctol,
+                           float cstol, float stol, double rtol, float lam0, float decr,
+                           float incr, double* x_out, int* it_out, uint8_t* conv_out,
+                           uint8_t* sat_out, uint8_t* deg_out, void* stream) {
   if (B <= 0) return 0;
-  if (n < 1 || m < 1 || n_inst < 1 || n_cons < 1) return (int)cudaErrorInvalidValue;
-  const Topo t{inst, w32, w64, perm, inv, nzl, n_inst, n, m, n_cons, P};
+  if (n < 1 || n_inst < 1 || n_cons < 1) return (int)cudaErrorInvalidValue;
   const Settings s{coarse_trips, refine_trips, max_it, ctol, cstol, stol,
                    lam0, decr, incr, rtol};
+  const Outputs o{x_out, it_out, conv_out, sat_out, deg_out};
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_max == CAPS[0][0] && rows_max == CAPS[0][1])
-    return launch<CAPS[0][0], CAPS[0][1]>(x0, par, B, t, s, x_out, it_out,
-                                          conv_out, sat_out, deg_out, st);
-  if (n_max == CAPS[1][0] && rows_max == CAPS[1][1])
-    return launch<CAPS[1][0], CAPS[1][1]>(x0, par, B, t, s, x_out, it_out,
-                                          conv_out, sat_out, deg_out, st);
-  if (n_max == CAPS[2][0] && rows_max == CAPS[2][1])
-    return launch<CAPS[2][0], CAPS[2][1]>(x0, par, B, t, s, x_out, it_out,
-                                          conv_out, sat_out, deg_out, st);
+#define EZPZ_SMALL(NV_, NI_)                                                          \
+  if (nv == NV_ && ni == NI_)                                                         \
+    return launch_small<NV_, NI_>(x0, par, B, n, n_cons, P, inst, n_inst, w32, w64,   \
+                                  perm, fill, s, o, st);
+  EZPZ_SMALL(1, 1)
+  EZPZ_SMALL(2, 2)
+  EZPZ_SMALL(4, 4)
+  EZPZ_SMALL(8, 8)
+#undef EZPZ_SMALL
   return (int)cudaErrorInvalidValue;
+}
+
+// Big path: every table is a DEVICE array; fscr/dscr are the lane-
+// interleaved scratch (BigSlots(...).F32 floats and .F64 doubles per lane).
+int ezpz_fused_fleet_big(const double* x0, const double* par, int B, int n, int n_cons, int P,
+                         const int* inst, int n_inst, const float* w32, const double* w64,
+                         const int* perm, const int* row_start, const int* ent_col,
+                         const int* cr_start, const int* cr_pair, const int* col_start,
+                         const int* col_ent, int fill, float* fscr, double* dscr,
+                         int coarse_trips, int refine_trips, int max_it, float ctol,
+                         float cstol, float stol, double rtol, float lam0, float decr,
+                         float incr, double* x_out, int* it_out, uint8_t* conv_out,
+                         uint8_t* sat_out, uint8_t* deg_out, void* stream) {
+  if (B <= 0) return 0;
+  if (n < 1 || n_inst < 1 || n_inst > 256 || n_cons < 1 || n_cons > 256 || fill >= 65536 ||
+      n >= 65536)
+    return (int)cudaErrorInvalidValue;
+  const BigTopo g{inst, w32, w64, perm, row_start, ent_col, cr_start, cr_pair,
+                  col_start, col_ent, n, n_inst, n_cons, P, fill};
+  const Settings s{coarse_trips, refine_trips, max_it, ctol, cstol, stol,
+                   lam0, decr, incr, rtol};
+  const Outputs o{x_out, it_out, conv_out, sat_out, deg_out};
+  const size_t smem = big_shared_bytes(n_inst);
+  cudaError_t err = cudaFuncSetAttribute(fused_big_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (B + THREADS - 1) / THREADS;
+  fused_big_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(x0, par, B, g, s, fscr,
+                                                                    dscr, o);
+  return (int)cudaGetLastError();
+}
+
+// Resident threads per SM of an instantiation (nv = 0: the big-topology
+// kernel with the shared memory of n_inst instances), for the record of
+// registers against occupancy.
+int ezpz_fused_fleet_occupancy(int nv, int ni, int n_inst, int* threads_per_sm) {
+  size_t smem = 0;
+  const void* fn = nullptr;
+  if (nv == 0) {
+    fn = (const void*)fused_big_kernel;
+    smem = big_shared_bytes(n_inst);
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_big_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+#define EZPZ_SMALL(NV_, NI_) \
+  if (nv == NV_ && ni == NI_) fn = (const void*)fused_small_kernel<NV_, NI_>;
+  EZPZ_SMALL(1, 1)
+  EZPZ_SMALL(2, 2)
+  EZPZ_SMALL(4, 4)
+  EZPZ_SMALL(8, 8)
+#undef EZPZ_SMALL
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, THREADS, smem);
+  *threads_per_sm = blocks * THREADS;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -7,7 +7,8 @@ then one link. It lands in ``build/ezpz_tpu_torch/`` under the repository
 root, named by a hash of the sources and flags: a rebuilt checkout with
 unchanged sources reuses it, and any edit rebuilds. The compiler's output
 (``-Xptxas -v``: registers, local memory, spills per instantiation) is kept
-beside the library as ``<name>.log``.
+beside the library as ``<name>.log``. Threads per block and the
+occupancy bound are constants of the sources (``fleet_common.cuh``).
 """
 
 from __future__ import annotations
@@ -34,24 +35,41 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-# (max variables, max residual rows) of each compiled instantiation of the
-# kernels, smallest first. Mirrors CAPS in csrc/fleet_common.cuh.
-CAPACITIES = ((4, 8), (16, 32), (64, 256))
+# (variables, instances) of each exact-shape instantiation of the kernels,
+# whose lane state lives in registers, smallest first. Mirrors SMALL_SHAPES
+# in csrc/fleet_common.cuh.
+SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
+
+# Scratch of one big-topology launch; a larger batch is launched in chunks.
+MAX_SCRATCH_BYTES = 1 << 30
 
 
-def capacity_for(plan) -> tuple:
-    """The smallest compiled capacity that holds ``plan`` (variables,
-    residual rows; instances and constraints count against the rows).
-    Raises ``NotImplementedError`` above the largest."""
-    need_rows = max(plan.n_rows, plan.n_inst, plan.n_constraints)
-    for n_max, rows_max in CAPACITIES:
-        if plan.n_vars <= n_max and need_rows <= rows_max:
-            return n_max, rows_max
-    n_max, rows_max = CAPACITIES[-1]
-    raise NotImplementedError(
-        f"topology with {plan.n_vars} variables and {need_rows} residual "
-        f"rows exceeds the fleet kernels' largest capacity ({n_max} "
-        f"variables, {rows_max} rows)")
+def small_shape(plan):
+    """The smallest exact-shape instantiation that holds an admitted
+    ``plan`` (its variables and instances padded up), or None for the
+    big-topology kernel: above the ladder, or when an instance names one
+    variable twice (the register layout spreads each instance's Jacobian
+    columns over distinct variables)."""
+    if not plan.kernel["distinct_ids"]:
+        return None
+    for nv, ni in SMALL_SHAPES:
+        if plan.n_vars <= nv and plan.n_inst <= ni:
+            return nv, ni
+    return None
+
+
+def big_slots(plan, f64: bool) -> tuple:
+    """(floats, doubles) of lane-interleaved scratch per lane of the
+    big-topology kernel (BigSlots in csrc/fleet_common.cuh)."""
+    n, m = plan.n_vars, 2 * plan.n_inst
+    f32 = 4 * n + 2 * m + plan.fill
+    return f32, plan.n_par + (2 * n + 2 * m if f64 else 0)
+
+
+def chunks(B: int, per_lane_bytes: int):
+    """(start, stop) of each big-topology launch of a batch of ``B``."""
+    step = max(1, MAX_SCRATCH_BYTES // max(1, per_lane_bytes))
+    return [(lo, min(B, lo + step)) for lo in range(0, B, step)]
 
 
 def _nvcc() -> str:
@@ -88,7 +106,8 @@ def build() -> Path:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             objs = [str(Path(tmp) / (Path(src).stem + ".o")) for src in SOURCES]
             # One compiler per source, all started together; then one link.
-            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                       str(CSRC / src)],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
                      for src, obj in zip(SOURCES, objs)]
@@ -118,46 +137,64 @@ def load_library() -> ctypes.CDLL:
     signatures declared. Loaded once per process."""
     lib = ctypes.CDLL(str(build()))
     p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-    lib.ezpz_fused_fleet.restype = i
-    lib.ezpz_fused_fleet.argtypes = [
-        i, i,                      # capacity (n_max, rows_max)
-        p, p, i, i, i, i, i,       # x0, par, B, n, rows, n_cons, P
-        p, i, p, p, p, p, p,       # inst, n_inst, w32, w64, perm, inv, nzl
-        i, i, i,                   # coarse_trips, refine_trips, max_iterations
-        f, f, f, d, f, f, f,       # ctol, cstol, stol, rtol, lam0, decr, incr
-        p, p, p, p, p,             # x, iterations, converged, sat, deg
-        p,                         # stream
-    ]
-    lib.ezpz_coarse_fleet.restype = i
-    lib.ezpz_coarse_fleet.argtypes = [
-        i, i,                      # capacity (n_max, rows_max)
-        p, p, i, i, i, i, i,       # x0, par, B, n, rows, n_cons, P
-        p, i, p, p, p, p, p,       # inst, n_inst, w32, w64, perm, inv, nzl
-        i,                         # trips
-        f, f, f, f, f,             # ctol, cstol, lam0, decr, incr
-        p, p, p, p,                # x, iterations, converged, deg
-        p,                         # stream
-    ]
-    lib.ezpz_fused_fleet_capacity.restype = i
-    lib.ezpz_fused_fleet_capacity.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    u64 = ctypes.c_ulonglong
+    small = [i, i,                     # shape (variables, instances)
+             p, p, i, i, i, i,         # x0, par, B, n, n_cons, P
+             p, i, p, p, p, u64]       # host kinst, n_inst, w32, w64, perm; fill bits
+    big = [p, p, i, i, i, i,           # x0, par, B, n, n_cons, P
+           p, i, p, p, p,              # device kinst, n_inst, w32, w64, perm
+           p, p, p, p, p, p, i,        # row_start, ent_col, cr_start, cr_pair, col_start, col_ent, fill
+           p, p]                       # float and double scratch
+    fused = [i, i, i,                  # coarse_trips, refine_trips, max_iterations
+             f, f, f, d, f, f, f,      # ctol, cstol, stol, rtol, lam0, decr, incr
+             p, p, p, p, p,            # x, iterations, converged, sat, deg
+             p]                        # stream
+    coarse = [i,                       # trips
+              f, f, f, f, f,           # ctol, cstol, lam0, decr, incr
+              p, p, p, p,              # x, iterations, converged, deg
+              p]                       # stream
+    for name, args in (("ezpz_fused_fleet_small", small + fused),
+                       ("ezpz_fused_fleet_big", big + fused),
+                       ("ezpz_coarse_fleet_small", small + coarse),
+                       ("ezpz_coarse_fleet_big", big + coarse)):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = args
+    for name in ("ezpz_fused_fleet_occupancy", "ezpz_coarse_fleet_occupancy"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.ezpz_small_shape.restype = i
+    lib.ezpz_small_shape.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.ezpz_cuda_error_string.restype = ctypes.c_char_p
     lib.ezpz_cuda_error_string.argtypes = [i]
-    if compiled_capacities(lib) != CAPACITIES:
-        raise RuntimeError(f"library capacities {compiled_capacities(lib)} != "
-                           f"{CAPACITIES}")
+    if compiled_shapes(lib) != SMALL_SHAPES:
+        raise RuntimeError(f"library shapes {compiled_shapes(lib)} != {SMALL_SHAPES}")
     return lib
 
 
-def compiled_capacities(lib) -> tuple:
-    """The (n_max, rows_max) instantiations the library reports."""
+def compiled_shapes(lib) -> tuple:
+    """The (variables, instances) exact-shape instantiations the library
+    reports."""
     out = []
-    n_max, rows_max = ctypes.c_int(), ctypes.c_int()
+    nv, ni = ctypes.c_int(), ctypes.c_int()
     k = 0
-    while lib.ezpz_fused_fleet_capacity(k, ctypes.byref(n_max),
-                                        ctypes.byref(rows_max)) == 0:
-        out.append((n_max.value, rows_max.value))
+    while lib.ezpz_small_shape(k, ctypes.byref(nv), ctypes.byref(ni)) == 0:
+        out.append((nv.value, ni.value))
         k += 1
     return tuple(out)
+
+
+def resident_threads(lib, entry: str, shape, n_inst: int = 0) -> int:
+    """Threads an SM holds at once for the ``entry`` (``"fused"``/
+    ``"coarse"``) kernel of exact ``shape`` (variables, instances), or of
+    the big-topology kernel for ``shape=None`` with the shared memory of
+    ``n_inst`` instances."""
+    threads = ctypes.c_int()
+    nv, ni = shape if shape is not None else (0, 0)
+    err = getattr(lib, f"ezpz_{entry}_fleet_occupancy")(nv, ni, n_inst,
+                                                       ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: {error_string(lib, err)}")
+    return threads.value
 
 
 def error_string(lib, err: int) -> str:

@@ -22,16 +22,15 @@ launches the kernel or raises; a CPU tensor takes ``coarse_fleet_reference``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
-from . import _build
+from .fleet_common import (Topology, check_admitted, check_inputs, coarse_phase,
+                           launch, param_rows)
 from .fleet_plan import FleetPlan
-from .fleet_common import Topology, check_inputs, coarse_phase, param_rows
 
 # Kernel launches made by ``coarse_fleet_solve`` in this process.
 LAUNCHES = 0
@@ -49,11 +48,14 @@ def coarse_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     ``initial_lambda``. Returns ``(x (B, n) float32, iterations (B,) int32,
     converged (B,) bool, degenerate (B, n_cons) bool)``.
 
-    A CUDA ``x0`` launches the hand-written kernel (built from ``csrc/`` at
-    first use) or raises: when ``nvcc`` is missing, the build fails, the
-    topology exceeds every compiled capacity, or the launch fails. Only a
-    CPU ``x0`` takes the plain version."""
+    A plan outside the kernel gate raises ``NotImplementedError`` on any
+    device. Otherwise a CUDA ``x0`` launches the hand-written kernel
+    (built from ``csrc/`` at first use; the exact-shape instantiation that
+    holds the topology, else the big-topology kernel per chunk of the
+    batch) or raises: when ``nvcc`` is missing, the build fails, or the
+    launch fails. Only a CPU ``x0`` takes the plain version."""
     global LAUNCHES
+    check_admitted(plan)
     if x0.device.type == "cpu":
         return coarse_fleet_reference(plan, x0, pars, trips=trips,
                                       tolerance=tolerance,
@@ -65,34 +67,16 @@ def coarse_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     B, n = x0.shape
     if B >= 2 ** 31:
         raise ValueError(f"batch of {B} sketches exceeds the kernel's int32 lane index")
-    cap = _build.capacity_for(plan)
-    lib = _build.load_library()
     dev = x0.device
-    x0c = x0.contiguous()
-    par = param_rows(pars, B, dev)
-    inst, w32, w64, perm, inv, nzl = plan.device_tables(dev)
-    x_out = torch.empty((B, n), dtype=torch.float32, device=dev)
-    it_out = torch.empty((B,), dtype=torch.int32, device=dev)
-    conv_out = torch.empty((B,), dtype=torch.bool, device=dev)
-    deg_out = torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ezpz_coarse_fleet(
-            cap[0], cap[1],
-            x0c.data_ptr(), par.data_ptr(), B, n, plan.n_rows,
-            plan.n_constraints, par.shape[1],
-            inst.data_ptr(), plan.n_inst, w32.data_ptr(), w64.data_ptr(),
-            perm.data_ptr(), inv.data_ptr(), nzl.data_ptr(),
-            trips, tolerance, step_tolerance, initial_lambda,
-            float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)),
-            x_out.data_ptr(), it_out.data_ptr(), conv_out.data_ptr(),
-            deg_out.data_ptr(), ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"coarse fleet kernel launch failed: cudaError {err} "
-                           f"({_build.error_string(lib, err)})")
-    LAUNCHES += 1
-    return x_out, it_out, conv_out, deg_out
+    outs = (torch.empty((B, n), dtype=torch.float32, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+            torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev))
+    scalars = (trips, tolerance, step_tolerance, initial_lambda,
+               float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)))
+    LAUNCHES += launch("coarse", plan, x0.contiguous(), param_rows(pars, B, dev),
+                       scalars, outs, f64=False)
+    return outs
 
 
 def coarse_fleet_reference(plan: FleetPlan, x0: torch.Tensor,

@@ -1,7 +1,8 @@
 """What the two fleet kernels' wrappers and plain versions share.
 
-The Python side of ``csrc/fleet_common.cuh``: input checks and parameter
-packing for both wrappers (``ops/fused_fleet``, ``ops/coarse_fleet``), and
+The Python side of ``csrc/fleet_common.cuh``: the gate check, input
+checks, parameter packing and the launch for both wrappers
+(``ops/fused_fleet``, ``ops/coarse_fleet``), and
 the plain version's residual rows, normal equations, damped Crout solve and
 ``coarse_phase``, the f32 LM loop both kernels run first. Everything works
 in eager torch over lists of (B,) tensors, in the JAX kernels' operation
@@ -10,13 +11,16 @@ order (``ezpz_tpu/ops/pallas_fleet.py``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
+from . import _build
 from .fleet_plan import (INST_CID, INST_DIM, INST_IDS, INST_KIND, INST_NV,
-                         INST_POFF, INST_PK, FleetPlan)
+                         INST_POFF, INST_PK, KERNEL_MAX_FILL,
+                         KERNEL_MAX_INSTANCES, FleetPlan)
 from .kernels import KERNELS
 
 
@@ -35,6 +39,62 @@ def check_inputs(plan: FleetPlan, x0: torch.Tensor, pars: Sequence[torch.Tensor]
             raise ValueError(f"parameter block must be (B={B}, n_k, p_k) float64 "
                              f"on {x0.device} with n_k*p_k={width}, got "
                              f"{tuple(p.shape)} {p.dtype} on {p.device}")
+
+
+def check_admitted(plan: FleetPlan):
+    """Raise ``NotImplementedError`` for a plan the kernel gate declines
+    (``fleet_plan.kernel_admits``): ``BatchSolver`` routes such a topology
+    to its batched mixed path before any launch."""
+    if plan.kernel is None:
+        raise NotImplementedError(
+            f"topology with {plan.n_inst} instances and a planned fill of "
+            f"{plan.fill} is outside the fleet kernels' gate (at most "
+            f"{KERNEL_MAX_INSTANCES} instances, fill at most {KERNEL_MAX_FILL})")
+
+
+def launch(entry: str, plan: FleetPlan, x0: torch.Tensor, par: torch.Tensor,
+           scalars: tuple, outs: Sequence[torch.Tensor], f64: bool) -> int:
+    """Launch a fleet kernel of the library (``entry`` ``"fused"`` or
+    ``"coarse"``) on CUDA ``x0`` (B, n) and ``par`` (B, P): the exact-shape
+    instantiation that holds the plan (``_build.small_shape``) in one
+    launch, else the big-topology kernel over chunks of the batch with
+    lane-interleaved scratch (``_build.big_slots``). ``scalars``: the trip
+    counts and tolerances after the tables; ``outs``: the output tensors,
+    batch first. Raises ``RuntimeError`` on a refused launch; returns the
+    number of launches."""
+    lib = _build.load_library()
+    dev = x0.device
+    B, n = x0.shape
+    P = par.shape[1]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    shape = _build.small_shape(plan)
+    k = plan.kernel
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"{entry} fleet kernel launch failed: cudaError {err} "
+                               f"({_build.error_string(lib, err)})")
+
+    with torch.cuda.device(dev):
+        if shape is not None:
+            check(getattr(lib, f"ezpz_{entry}_fleet_small")(
+                *shape, x0.data_ptr(), par.data_ptr(), B, n, plan.n_constraints, P,
+                k["kinst"].ctypes.data, plan.n_inst, plan.w32.ctypes.data,
+                plan.w64.ctypes.data, plan.perm.ctypes.data, k["fill_bits"],
+                *scalars, *(o.data_ptr() for o in outs), stream))
+            return 1
+        fn = getattr(lib, f"ezpz_{entry}_fleet_big")
+        tables = [t.data_ptr() for t in plan.device_tables(dev)]
+        n32, n64 = _build.big_slots(plan, f64)
+        spans = _build.chunks(B, 4 * n32 + 8 * n64)
+        for lo, hi in spans:
+            fscr = torch.empty((n32, hi - lo), dtype=torch.float32, device=dev)
+            dscr = torch.empty((max(n64, 1), hi - lo), dtype=torch.float64, device=dev)
+            check(fn(x0[lo:hi].data_ptr(), par[lo:hi].data_ptr(), hi - lo, n,
+                     plan.n_constraints, P, tables[0], plan.n_inst, *tables[1:],
+                     plan.fill, fscr.data_ptr(), dscr.data_ptr(), *scalars,
+                     *(o[lo:hi].data_ptr() for o in outs), stream))
+        return len(spans)
 
 
 def param_rows(pars: Sequence[torch.Tensor], B: int, device) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""Build-time planner for the fused fleet solver.
+"""Build-time planner for the fleet kernels.
 
 A copy of the pure-Python planner in ``ezpz_tpu/ops/pallas_fleet.py``
 (``_instance_list``, the JtJ pattern, the symbolic fill, the RCM and
 nested-dissection orderings, ``_plan_factorization``, ``jtj_fill_count``,
-``n_flag_words``), plus ``plan_fleet``, which turns a topology into the
-plain tables the CUDA kernel and its plain version read. No array math
-runs here.
+``n_flag_words``) and of the JAX ``BatchSolver``'s kernel gate
+(``kernel_admits``), plus ``plan_fleet``, which turns a topology into the
+plain tables the CUDA kernels and their plain versions read: the instance
+table in the elimination numbering, the factor packed by the planned
+fill, and the Crout and triangular-solve schedules. No array math runs
+here.
 """
 
 from __future__ import annotations
@@ -318,6 +321,29 @@ def jtj_fill_count(system: CompiledSystem, limit=None) -> int:
     return best
 
 
+# The kernel gate of the JAX BatchSolver (ezpz_tpu/batch.py:57-58): a
+# topology goes to the fleet kernels when it has at most this many
+# instances and a planned factor fill of at most dense-64's.
+KERNEL_MAX_FILL = 64 * 65 // 2
+KERNEL_MAX_INSTANCES = 256
+
+
+def _within_gate(n_instances: int, fill) -> bool:
+    """The kernel gate: at most ``KERNEL_MAX_INSTANCES`` instances and a
+    planned fill (``fill()``, asked only when the count passes) of at most
+    ``KERNEL_MAX_FILL``."""
+    return 0 < n_instances <= KERNEL_MAX_INSTANCES and fill() <= KERNEL_MAX_FILL
+
+
+def kernel_admits(system: CompiledSystem) -> bool:
+    """Whether the fleet kernels take ``system`` (``BatchSolver.
+    _pallas_topology_ok`` of the JAX package, in its order: the instance
+    count first, so an oversized topology is declined before the symbolic
+    planner runs, and the fill analysis stops at the cap)."""
+    return _within_gate(sum(int(b.idx.shape[0]) for b in system.blocks),
+                        lambda: jtj_fill_count(system, limit=KERNEL_MAX_FILL))
+
+
 def n_flag_words(n_cons: int) -> int:
     """i32 words per lane needed to carry one bit per constraint."""
     return max(1, (n_cons + 31) // 32)
@@ -330,6 +356,16 @@ INST_KIND, INST_NV, INST_DIM, INST_CID, INST_POFF, INST_PK = range(6)
 INST_IDS = 6  # ids occupy columns INST_IDS .. INST_IDS + MAX_NV - 1
 MAX_NV = 8
 INST_COLS = INST_IDS + MAX_NV
+
+# Columns of the kernels' int32 instance table (csrc/fleet_common.cuh,
+# KI_*): kind, rows, variable count, parameter offset, flag word and bit
+# of the constraint, parameter count, the variables in the elimination
+# numbering (-1 padded), then 64 int16 factor slots, one per variable
+# pair (a, b), -1 where the pair adds nothing to the factor.
+KI_KIND, KI_DIM, KI_NV, KI_POFF, KI_WORD, KI_BIT, KI_PK = range(7)
+KI_IDS = 8
+KI_SLOTS = 16
+KI_COLS = KI_SLOTS + MAX_NV * MAX_NV // 2
 
 
 @dataclass(frozen=True)
@@ -344,6 +380,14 @@ class FleetPlan:
     it). ``nzl``: (n, n) uint8, the factor's structural nonzeros in the
     permuted numbering (lower triangle). ``par_cols``: per block, the
     ``(offset, nk * pk)`` columns of the concatenated parameter row.
+
+    ``kernel``: None when the kernel gate (``kernel_admits``) declines the
+    topology, else the kernels' tables (``kernel_tables``): ``kinst`` (n_inst, KI_COLS) int32, the factor's
+    packing (slot of each structural nonzero, row-major) as ``row_start``
+    and ``ent_col``, the Crout schedule ``cr_start``/``cr_pair``, the
+    backward solve's column lists ``col_start``/``col_ent``, ``fill_bits``
+    (bit ``i(i+1)/2 + j`` per nonzero, for n <= 8) and ``distinct_ids``
+    (no instance names a variable twice).
     """
 
     n_vars: int
@@ -356,24 +400,33 @@ class FleetPlan:
     nzl: np.ndarray
     par_cols: tuple
     n_par: int
+    kernel: dict = None
     _tables: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def n_inst(self) -> int:
         return int(self.inst.shape[0])
 
+    @property
+    def fill(self) -> int:
+        return int(self.nzl.sum())
+
+    def big_tables(self) -> tuple:
+        """The tables the big-topology kernels read, in their argument
+        order: kinst, w32, w64, perm, row_start, ent_col, cr_start,
+        cr_pair, col_start, col_ent."""
+        k = self.kernel
+        return (k["kinst"], self.w32, self.w64, self.perm, k["row_start"],
+                k["ent_col"], k["cr_start"], k["cr_pair"], k["col_start"],
+                k["col_ent"])
+
     def device_tables(self, device):
-        """(inst, w32, w64, perm, inv, nzl) as tensors on ``device``,
-        uploaded once per device."""
+        """``big_tables`` as tensors on ``device``, uploaded once per
+        device."""
         key = str(device)
         if key not in self._tables:
-            inv = np.empty_like(self.perm)
-            inv[self.perm] = np.arange(self.n_vars, dtype=np.int32)
-            self._tables[key] = tuple(
-                torch.as_tensor(a).to(device)
-                for a in (self.inst, self.w32, self.w64, self.perm, inv,
-                          self.nzl)
-            )
+            self._tables[key] = tuple(torch.as_tensor(a).to(device)
+                                      for a in self.big_tables())
         return self._tables[key]
 
 
@@ -396,6 +449,9 @@ def plan_fleet(system: CompiledSystem) -> FleetPlan:
         inst[row, INST_IDS:INST_IDS + len(ids)] = ids
     w64 = np.asarray([t[5] for t in instances], np.float64)
     perm, nz = _plan_factorization([(None, t[1]) for t in instances], n)
+    perm = np.asarray(range(n) if perm is None else perm, np.int32)
+    nzl = np.asarray(nz, np.uint8).reshape(n, n)
+    admitted = _within_gate(len(instances), lambda: int(nzl.sum()))
     return FleetPlan(
         n_vars=n,
         n_rows=system.n_rows,
@@ -403,8 +459,65 @@ def plan_fleet(system: CompiledSystem) -> FleetPlan:
         inst=inst,
         w64=w64,
         w32=w64.astype(np.float32),
-        perm=np.asarray(range(n) if perm is None else perm, np.int32),
-        nzl=np.asarray(nz, np.uint8).reshape(n, n),
+        perm=perm,
+        nzl=nzl,
         par_cols=tuple(par_cols),
         n_par=off,
+        kernel=kernel_tables(inst, perm, nzl) if admitted else None,
     )
+
+
+def kernel_tables(inst: np.ndarray, perm: np.ndarray, nzl: np.ndarray) -> dict:
+    """The kernels' view of a plan (see ``FleetPlan``): everything in the
+    elimination numbering, the factor packed row by row over its
+    structural nonzeros, and the Crout factorization and both triangular
+    solves as lists of slots in the order the plain version
+    (``fleet_common.damped_solve``) visits them."""
+    n = int(perm.shape[0])
+    inv = np.empty(n, np.int64)
+    inv[perm] = np.arange(n)
+    rows = [[j for j in range(i + 1) if nzl[i, j]] for i in range(n)]
+    slot = {}
+    row_start = [0]
+    for i, cols in enumerate(rows):
+        for j in cols:
+            slot[i, j] = len(slot)
+        row_start.append(len(slot))
+    ent_col = [j for cols in rows for j in cols]
+    sets = [set(cols) for cols in rows]
+    cr_start, cr_pair = [0], []
+    for i, cols in enumerate(rows):
+        for j in cols:
+            for k in sorted(k for k in sets[i] & sets[j] if k < j):
+                cr_pair.append(slot[i, k] | slot[j, k] << 16)
+            cr_start.append(len(cr_pair))
+    col_start, col_ent = [0], []
+    for i in range(n):
+        col_ent += [slot[k, i] | k << 16 for k in range(i + 1, n) if nzl[k, i]]
+        col_start.append(len(col_ent))
+
+    kinst = np.zeros((inst.shape[0], KI_COLS), np.int32)
+    slots = np.full((inst.shape[0], MAX_NV * MAX_NV), -1, np.int16)
+    distinct = True
+    for row, rec in enumerate(inst):
+        nv, cid = int(rec[INST_NV]), int(rec[INST_CID])
+        ids = [int(inv[j]) for j in rec[INST_IDS:INST_IDS + nv]]
+        distinct = distinct and len(set(ids)) == nv
+        kinst[row, :KI_IDS] = (rec[INST_KIND], rec[INST_DIM], nv, rec[INST_POFF],
+                               cid >> 5, np.uint32(1 << (cid & 31)).view(np.int32),
+                               rec[INST_PK], 0)
+        kinst[row, KI_IDS:KI_SLOTS] = ids + [-1] * (MAX_NV - nv)
+        for a, pa in enumerate(ids):
+            for b, pb in enumerate(ids):
+                if pa >= pb:
+                    slots[row, a * MAX_NV + b] = slot[pa, pb]
+    kinst[:, KI_SLOTS:] = slots.view(np.int32)
+    fill_bits = 0
+    if n <= MAX_NV:
+        for (i, j) in slot:
+            fill_bits |= 1 << (i * (i + 1) // 2 + j)
+    as32 = lambda v: np.asarray(v, np.int32)  # noqa: E731
+    return dict(kinst=kinst, row_start=as32(row_start), ent_col=as32(ent_col),
+                cr_start=as32(cr_start), cr_pair=as32(cr_pair),
+                col_start=as32(col_start), col_ent=as32(col_ent),
+                fill_bits=fill_bits, distinct_ids=distinct)

@@ -27,17 +27,15 @@ phase 1 is ``fleet_common.coarse_phase``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
-from . import _build
-from .fleet_common import (Topology, check_inputs, coarse_phase, damped_solve,
-                           normal_equations, param_rows, residual_rows,
-                           rows_max_abs, rows_sumsq)
+from .fleet_common import (Topology, check_admitted, check_inputs, coarse_phase,
+                           damped_solve, launch, normal_equations, param_rows,
+                           residual_rows, rows_max_abs, rows_sumsq)
 from .fleet_plan import FleetPlan
 
 # Kernel launches made by ``fused_fleet_solve`` in this process.
@@ -61,12 +59,15 @@ def fused_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     Returns ``(x (B, n) float64, iterations (B,) int32, converged (B,)
     bool, satisfied (B, n_cons) bool, degenerate (B, n_cons) bool)``.
 
-    A CUDA ``x0`` launches the hand-written kernel (built from
-    ``csrc/fused_fleet.cu`` at first use) or raises: when ``nvcc`` is
-    missing, the build fails, the topology exceeds every compiled
-    capacity, or the launch fails. Only a CPU ``x0`` takes the plain
-    version."""
+    A plan outside the kernel gate (``fleet_plan.kernel_admits``) raises
+    ``NotImplementedError`` on any device. Otherwise a CUDA ``x0`` launches
+    the hand-written kernel (built from ``csrc/fused_fleet.cu`` at first
+    use: the exact-shape instantiation that holds the topology, else the
+    big-topology kernel, one launch per chunk of the batch) or raises:
+    when ``nvcc`` is missing, the build fails, or the launch fails. Only a
+    CPU ``x0`` takes the plain version."""
     global LAUNCHES
+    check_admitted(plan)
     if x0.device.type == "cpu":
         return fused_fleet_reference(
             plan, x0, pars, coarse_trips=coarse_trips, refine_trips=refine_trips,
@@ -80,37 +81,19 @@ def fused_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     B, n = x0.shape
     if B >= 2 ** 31:
         raise ValueError(f"batch of {B} sketches exceeds the kernel's int32 lane index")
-    cap = _build.capacity_for(plan)
-    lib = _build.load_library()
     dev = x0.device
-    x0c = x0.contiguous()
-    par = param_rows(pars, B, dev)
-    inst, w32, w64, perm, inv, nzl = plan.device_tables(dev)
-    x_out = torch.empty((B, n), dtype=torch.float64, device=dev)
-    it_out = torch.empty((B,), dtype=torch.int32, device=dev)
-    conv_out = torch.empty((B,), dtype=torch.bool, device=dev)
-    sat_out = torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev)
-    deg_out = torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ezpz_fused_fleet(
-            cap[0], cap[1],
-            x0c.data_ptr(), par.data_ptr(), B, n, plan.n_rows,
-            plan.n_constraints, par.shape[1],
-            inst.data_ptr(), plan.n_inst, w32.data_ptr(), w64.data_ptr(),
-            perm.data_ptr(), inv.data_ptr(), nzl.data_ptr(),
-            coarse_trips, refine_trips, max_iterations,
-            coarse_tolerance, coarse_step_tolerance, step_tolerance,
-            residual_tolerance, initial_lambda,
-            float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)),
-            x_out.data_ptr(), it_out.data_ptr(), conv_out.data_ptr(),
-            sat_out.data_ptr(), deg_out.data_ptr(), ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"fused fleet kernel launch failed: cudaError {err} "
-                           f"({_build.error_string(lib, err)})")
-    LAUNCHES += 1
-    return x_out, it_out, conv_out, sat_out, deg_out
+    outs = (torch.empty((B, n), dtype=torch.float64, device=dev),
+            torch.empty((B,), dtype=torch.int32, device=dev),
+            torch.empty((B,), dtype=torch.bool, device=dev),
+            torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev),
+            torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev))
+    scalars = (coarse_trips, refine_trips, max_iterations,
+               coarse_tolerance, coarse_step_tolerance, step_tolerance,
+               residual_tolerance, initial_lambda,
+               float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)))
+    LAUNCHES += launch("fused", plan, x0.contiguous(), param_rows(pars, B, dev),
+                       scalars, outs, f64=True)
+    return outs
 
 
 # -- the plain version ---------------------------------------------------------

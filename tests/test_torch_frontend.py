@@ -229,12 +229,43 @@ def test_cuda_kind_enum_matches_registry():
 
 
 def test_cuda_capacities_match_build_module():
+    """The exact-shape ladder of the CUDA source is the build module's,
+    and each source dispatches every rung of it (small and occupancy
+    entry points of both kernels)."""
     from ezpz_tpu_torch.ops import _build
 
-    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fleet_common.cuh")).read()
-    caps = re.search(r"constexpr int CAPS\[\]\[2\] = \{(.*?)\};", src).group(1)
+    csrc = os.path.join(ROOT, "ezpz_tpu_torch", "csrc")
+    src = open(os.path.join(csrc, "fleet_common.cuh")).read()
+    caps = re.search(r"constexpr int SMALL_SHAPES\[\]\[2\] = \{(.*?)\};", src).group(1)
     assert tuple(tuple(int(v) for v in c) for c in
-                 re.findall(r"\{(\d+), (\d+)\}", caps)) == _build.CAPACITIES
+                 re.findall(r"\{(\d+), (\d+)\}", caps)) == _build.SMALL_SHAPES
+    for name in ("fused_fleet.cu", "coarse_fleet.cu"):
+        body = open(os.path.join(csrc, name)).read()
+        assert tuple((int(a), int(b)) for a, b in
+                     re.findall(r"^\s*EZPZ_SMALL\((\d+), (\d+)\)$", body, flags=re.M)
+                     ) == _build.SMALL_SHAPES * 2, name
+
+
+@pytest.mark.parametrize("table", ["ARITY", "NPAR", "DIM"])
+def test_cuda_kind_tables_match_registry(table):
+    """Variables, parameters and rows per kind in the CUDA source are the
+    registry's."""
+    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fleet_common.cuh")).read()
+    body = re.search(rf"constexpr int {table}\[23\] = \{{(.*?)\}};", src, flags=re.S).group(1)
+    field = {"ARITY": "nvars", "NPAR": "nparams", "DIM": "dim"}[table]
+    assert [int(v) for v in body.replace("\n", " ").split(",")] == [
+        getattr(spec, field) for spec in KERNELS.values()]
+
+
+def test_cuda_instance_columns_match_planner():
+    """The kernels' instance-table columns (KI_*) are the planner's."""
+    from ezpz_tpu_torch.ops import fleet_plan
+
+    src = open(os.path.join(ROOT, "ezpz_tpu_torch", "csrc", "fleet_common.cuh")).read()
+    cols = dict(re.findall(r"\b(KI_[A-Z]+) = (\d+)", src))
+    for name in ("KI_KIND", "KI_DIM", "KI_NV", "KI_POFF", "KI_WORD", "KI_BIT",
+                 "KI_PK", "KI_IDS", "KI_SLOTS", "KI_COLS"):
+        assert int(cols[name]) == getattr(fleet_plan, name), name
 
 
 def test_port_imports_no_jax():
