@@ -45,7 +45,36 @@ Phases (any failure exits non-zero before the result line):
    pallas_coarse=True, pallas_fused=False, pallas_trips=3).solve``. The
    same gate; the coarse kernel launched once per bucket and the fused one
    not at all; then 5 timed reps of the path, of its coarse kernel and
-   refinement separately, and of the path with the plain coarse version.
+   refinement separately, and of the path with the plain coarse version;
+6. the public API on the card (``phase6``):
+   (a) every corpus fixture through ``Problem.from_str(...)
+   .to_constraint_system().solve_with_config_analysis(Config(),
+   device=...)`` on the card and on the CPU: converged, unsatisfied,
+   underconstrained and warnings equal, coordinates within 1e-6 on fully
+   constrained fixtures, and the card's iteration count equal to the pin
+   in ``tests/golden_iterations.json``;
+   (b) ``massive_parallel_system`` (2,400 variables) and the same sketch
+   tiled 16 times with offset ids (38,400 variables) through
+   ``ezpz_tpu_torch.solve`` on the card (the ``BlockProgram`` route):
+   converged, all satisfied, 2 iterations; then the CLI's protocol,
+   ``time_resolves`` synchronous and pipelined (20 repeats), in us per
+   solve, on the card and on the CPU for ``tiny``, ``two_rectangles`` and
+   ``massive_parallel_system``, and on the card for the tiled sketch (10
+   repeats: its host path is long); on the card each also once under
+   ``torch.profiler`` (launches, device busy time, idle share);
+   (c) the tiled sketch through ``BlockSolver(precision="mixed",
+   pallas_fused=True)`` and ``(pallas_coarse=True)`` on the card, counts
+   from zero: each kernel launched once per bucket its gate admits, the
+   other not at all, the bench gate on the whole 38,400-variable system
+   (``residual_and_flags``), x within 1e-6 of ``BlockSolver(precision=
+   "f64")``; and ``MultiTopologySolver`` on the massive fixture's buckets
+   equal to per-bucket ``BatchSolver`` results (flags, iterations, x
+   within 1e-12);
+   (d) ``BatchSolver.solve_analysis`` on the buckets of
+   ``underconstrained`` (its pinned point q; p is in no constraint),
+   ``perpdist`` and ``parallelogram`` (2 and 4 free variables) and
+   ``square`` at 4096 seeded perturbations each, on the card and on the
+   CPU: converged flags and underconstrained lists equal lane for lane.
 
 The line before the last is a JSON record per kernel: launches in its main
 path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
@@ -66,6 +95,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+API_FIXTURES = ("tiny", "two_rectangles", "massive_parallel_system")
+API_ITERS = 20
+TILES = 16
+TILED_ITERS = 10
+ANALYSIS_FIXTURES = ("underconstrained", "perpdist", "square", "parallelogram")
+ANALYSIS_B = 4096
 COPIES = 8192
 REPS = 5
 INNER = 4
@@ -631,6 +666,241 @@ def phase5(dev, card):
                 bound_ms=bound, bound_by=bound_by)
 
 
+def fixture_text(name):
+    with open(os.path.join(HERE, "tests", "cases", name, "problem.md")) as fh:
+        return fh.read()
+
+
+def tiled_text(name, copies):
+    """A fixture whose points are all named ``p<i>`` repeated ``copies``
+    times, copy c's point i renamed ``p<i + c * n_points>``: independent
+    copies with offset variable ids."""
+    text = fixture_text(name)
+    head, tail = text.split("# guesses")
+    n_points = len(re.findall(r"^point p\d+$", head, flags=re.M))
+
+    def shifted(block, c):
+        return re.sub(r"\bp(\d+)\b", lambda m: f"p{int(m.group(1)) + c * n_points}", block)
+
+    body = head.replace("# constraints", "")
+    return ("# constraints\n" + "".join(shifted(body, c) for c in range(copies))
+            + "# guesses\n" + "".join(shifted(tail, c) for c in range(copies)))
+
+
+def system_of(text):
+    from ezpz_tpu_torch.textual import Problem
+
+    return Problem.from_str(text).to_constraint_system()
+
+
+def outcome_key(res):
+    """What must be equal between two devices' ``OutcomeAnalysis``."""
+    o = res.outcome
+    return (o.converged, o.unsatisfied, res.analysis.underconstrained(),
+            [(w.about_constraint, w.content.value) for w in o.warnings],
+            o.priority_solved, o.num_vars, o.num_eqs)
+
+
+def phase6a(dev):
+    """The corpus through the textual API on the card and on the CPU."""
+    from ezpz_tpu_torch.config import Config
+
+    with open(os.path.join(HERE, "tests", "golden_iterations.json")) as fh:
+        pins = json.load(fh)
+    bad = []
+    for name in sorted(pins):
+        cs = system_of(fixture_text(name))
+        card = cs.solve_with_config_analysis(Config(), device=dev)
+        cpu = cs.solve_with_config_analysis(Config(), device="cpu")
+        full = not cpu.analysis.is_underconstrained()
+        dx = max((abs(a - b) for a, b in zip(card.outcome.final_values,
+                                             cpu.outcome.final_values)), default=0.0)
+        same = outcome_key(card) == outcome_key(cpu)
+        on_pin = card.outcome.iterations == pins[name]
+        print(f"phase6a {name}: iterations card {card.outcome.iterations} cpu "
+              f"{cpu.outcome.iterations} pin {pins[name]}; outcome equal {same}; "
+              f"fully constrained {full}, max |x_card - x_cpu| {dx!r}", flush=True)
+        if not (same and on_pin and (dx <= X_TOL or not full)):
+            bad.append(name)
+    if bad:
+        raise SystemExit(f"chip_smoke: the API on the card disagrees with the CPU or "
+                         f"misses a pinned iteration count on {bad}")
+    print(f"phase6a ok: {len(pins)} fixtures equal on card and CPU, card on every pin",
+          flush=True)
+
+
+def phase6b(dev, card):
+    """``solve`` on the decomposed route at full size, and the CLI's timing
+    protocol on the card and on the CPU."""
+    import ezpz_tpu_torch
+    from ezpz_tpu_torch import api
+    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.models.blocks import BlockProgram
+
+    tiled = system_of(tiled_text("massive_parallel_system", TILES))
+    for label, cs in (("massive_parallel_system", system_of(fixture_text(
+            "massive_parallel_system"))), (f"massive x{TILES} tiled", tiled)):
+        out = ezpz_tpu_torch.solve(cs.constraints, cs.initial_guesses, device=dev)
+        n = len(cs.initial_guesses)
+        program, _ = api._get_system_and_solver(
+            [r.constraint for r in cs.constraints], [1.0] * len(cs.constraints), n,
+            Config().max_iterations, device=dev)
+        print(f"phase6b solve {label}: {n} variables, route "
+              f"{type(program).__name__} ({getattr(program, 'n_components', 1)} components), "
+              f"converged={out.converged} unsatisfied={len(out.unsatisfied)} "
+              f"iterations={out.iterations}", flush=True)
+        if not (isinstance(program, BlockProgram) and out.converged
+                and not out.unsatisfied and out.iterations == 2):
+            raise SystemExit(f"chip_smoke: solve failed on {label}")
+
+    runs = [(name, system_of(fixture_text(name)), d, API_ITERS) for name in API_FIXTURES
+            for d in (dev, "cpu")]
+    runs.append((f"massive x{TILES} tiled", tiled, dev, TILED_ITERS))
+    for name, cs, d, iters in runs:
+        cs.solve_with_config(Config(), device=d)  # build the solver once, untimed
+        sync = cs.time_resolves(Config(), iters=iters, device=d)
+        piped = cs.time_resolves(Config(), iters=iters, pipelined=True, device=d)
+        where = "card" if str(d) != "cpu" else "cpu"
+        print(f"phase6b time_resolves {name} on the {where}: {sync * 1e6!r} us/solve "
+              f"synchronous, {piped * 1e6!r} us/solve pipelined (mean of {iters}); "
+              f"card: {card}", flush=True)
+        if where == "card":
+            print(f"phase6b profile {name} on the card: {profile_solve(cs, d)}", flush=True)
+
+
+def profile_solve(cs, dev):
+    """One warm ``solve_with_config`` on the card under ``torch.profiler``:
+    kernel launches, device-to-host copies, the kernels' summed device time
+    and the wall time (profiler overhead included), and the device's idle
+    share of that wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ezpz_tpu_torch.config import Config
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cs.solve_with_config(Config(), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = copies = 0
+    device_us = 0.0
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx"):
+            launches += e.count
+        elif e.key == "cudaMemcpyAsync":
+            copies += e.count
+        if e.device_type == DeviceType.CUDA:
+            device_us += getattr(e, "self_device_time_total", 0.0)
+    return (f"{launches} kernel launches, {copies} cudaMemcpyAsync, device busy "
+            f"{device_us / 1e3!r} ms of {wall * 1e3!r} ms wall (profiled), idle share "
+            f"{1 - device_us / 1e6 / wall!r}")
+
+
+def phase6c(dev):
+    """``BlockSolver`` in its kernel modes on the tiled sketch, and
+    ``MultiTopologySolver`` against per-bucket ``BatchSolver``s."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.batch import BatchSolver, MultiTopologySolver
+    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.models.blocks import BlockSolver, build_buckets
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.ops import coarse_fleet, fused_fleet
+
+    cs = system_of(tiled_text("massive_parallel_system", TILES))
+    x0 = guesses(cs)
+    cons = [r.constraint.set_from_initial_values(x0) for r in cs.constraints]
+    whole = compile_system(cons, len(x0))
+    ref = BlockSolver(cons, len(x0), precision="f64", device=dev).solve(x0)
+    for mode, mod, other in (("fused", fused_fleet, coarse_fleet),
+                             ("coarse", coarse_fleet, fused_fleet)):
+        solver = BlockSolver(cons, len(x0), precision="mixed", pallas_coarse=True,
+                             pallas_fused=mode == "fused", device=dev)
+        admitted = sum(s.kernel_ok for s in solver._solvers)
+        fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = 0
+        out = solver.solve(x0)
+        torch.cuda.synchronize()
+        launches, others = mod.LAUNCHES, other.LAUNCHES
+        r, _deg = whole.residual_and_flags(torch.as_tensor(out.x, device=dev)[None])
+        rmax = float(r.abs().max())
+        dx = float(np.abs(out.x - ref.x).max())
+        print(f"phase6c BlockSolver {mode} x{TILES} tiled: {len(solver.buckets)} buckets, "
+              f"{admitted} admitted, launches {mode}_fleet={launches} other={others}; "
+              f"converged={out.converged} satisfied={bool(out.satisfied.all())} "
+              f"f64_residual_max={rmax!r} iterations={out.iterations}; "
+              f"max |x - x_f64| {dx!r}", flush=True)
+        if not (admitted > 0 and launches == admitted and others == 0 and out.converged
+                and bool(out.satisfied.all()) and rmax <= 1e-8 and dx <= X_TOL):
+            raise SystemExit(f"chip_smoke: BlockSolver {mode} failed on the tiled sketch")
+
+    cs = system_of(fixture_text("massive_parallel_system"))
+    x0 = guesses(cs)
+    buckets = build_buckets([r.constraint for r in cs.constraints], len(x0))
+    x0s = [torch.as_tensor(x0[b.var_index] + 1e-3, device=dev) for b in buckets]
+    parss = [tuple(torch.as_tensor(p, device=dev) for p in b.pars) for b in buckets]
+    multi = MultiTopologySolver([b.system for b in buckets], Config(), device=dev)
+    for b, m, xb, pb in zip(buckets, multi.solve(x0s, parss), x0s, parss):
+        one = BatchSolver(b.system, Config(), batch_params=True, device=dev).solve(xb, pb)
+        flags = all(torch.equal(getattr(m, k), getattr(one, k)) for k in
+                    ("iterations", "converged", "satisfied", "degenerate"))
+        dx = float((m.x - one.x).abs().max())
+        print(f"phase6c MultiTopologySolver bucket n_vars={b.system.n_vars} "
+              f"lanes={len(b.components)}: flags and iterations equal {flags}, "
+              f"max |dx| {dx!r}", flush=True)
+        if not (flags and dx <= 1e-12):
+            raise SystemExit("chip_smoke: MultiTopologySolver disagrees with BatchSolver")
+
+
+def phase6d(dev):
+    """``BatchSolver.solve_analysis`` on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.batch import BatchSolver
+    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.models.blocks import build_buckets
+
+    seed = 100
+    for name in ANALYSIS_FIXTURES:
+        cs = system_of(fixture_text(name))
+        x0 = guesses(cs)
+        cons = [r.constraint.set_from_initial_values(x0) for r in cs.constraints]
+        for bi, b in enumerate(build_buckets(cons, len(x0))):
+            rng = np.random.default_rng(seed)
+            seed += 1
+            k = np.arange(ANALYSIS_B) % len(b.components)
+            xb = x0[b.var_index[k]] + rng.normal(0, 1e-3, (ANALYSIS_B, b.system.n_vars))
+            pars = tuple(np.asarray(p)[k] for p in b.pars)
+            outs = []
+            for d in (dev, "cpu"):
+                res, an = BatchSolver(b.system, Config(), batch_params=True,
+                                      device=d).solve_analysis(xb, pars)
+                outs.append((res.converged.cpu(), [a.underconstrained() for a in an]))
+            (cc, ca), (pc, pa) = outs
+            lists_equal = sum(a == p for a, p in zip(ca, pa))
+            print(f"phase6d {name}[{bi}] n_vars={b.system.n_vars} lanes={ANALYSIS_B}: "
+                  f"converged equal {bool(torch.equal(cc, pc))}, underconstrained lists "
+                  f"equal on {lists_equal}/{ANALYSIS_B} lanes, lists on the card "
+                  f"{sorted(set(map(tuple, ca)))}", flush=True)
+            if not (torch.equal(cc, pc) and lists_equal == ANALYSIS_B):
+                raise SystemExit(f"chip_smoke: solve_analysis differs on {name}[{bi}]")
+
+
+def phase6(dev, card):
+    times = []
+    for part in (lambda: phase6a(dev), lambda: phase6b(dev, card),
+                 lambda: phase6c(dev), lambda: phase6d(dev)):
+        t0 = time.perf_counter()
+        part()
+        times.append(round(time.perf_counter() - t0, 1))
+    print(f"phase6 ok: {sum(times):.1f} s (a, b, c, d: {times} s)", flush=True)
+
+
 def kernel_ms(solvers, entry, plain=False):
     """Median ms per main-path solve of one kernel (or its plain version)
     alone: CUDA events around INNER solves of every bucket, on inputs made
@@ -703,6 +973,7 @@ def main() -> int:
     phase3c(dev, card)
     fused = phase4(dev, card)
     coarse = phase5(dev, card)
+    phase6(dev, card)
     kernels = []
     for name, rec, line in (("fused_fleet", fused, 898), ("coarse_fleet", coarse, 598)):
         kernels.append({

@@ -5,13 +5,18 @@ constraint types, solved by Levenberg-Marquardt. This package ports the
 JAX package ``ezpz_tpu`` (which stays the reference) to PyTorch, with the
 TPU's Pallas kernels rewritten by hand in CUDA C++ for the NVIDIA H100.
 
-It holds the fleet paths of ``bench.py``: the textual front end
-(``textual``), constraint lowering (``constraints``), per-type compilation
-(``models.compiled``), component bucketing (``models.blocks``), the batched
-Levenberg-Marquardt loop (``solver``, ``ops.linalg``) and
-``batch.BatchSolver`` over it and over the coarse and fused fleet kernels
-(``ops.coarse_fleet``, ``ops.fused_fleet``). The package imports ``torch``
-and never ``jax``.
+The public API is the JAX package's: ``solve`` and ``solve_analysis``
+(``api``), the textual format's ``ConstraintSystem.solve*``
+(``textual``), the outcome types (``outcomes``), and the CLI
+(``python -m ezpz_tpu_torch.cli``). Every entry point runs on the card
+unless the caller passes ``device="cpu"``; without a card it raises.
+Under it: constraint lowering (``constraints``), per-type compilation
+(``models.compiled``), component bucketing and the decomposed solvers
+(``models.blocks``: ``BlockProgram``, ``BlockSolver``), the batched
+Levenberg-Marquardt loop (``solver``, ``ops.linalg``), freedom analysis
+(``dof``), and ``batch.BatchSolver`` over the loop and over the coarse and
+fused fleet kernels (``ops.coarse_fleet``, ``ops.fused_fleet``). The
+package imports ``torch`` and never ``jax``.
 """
 
 from .config import Config
@@ -38,6 +43,9 @@ from .utils.errors import (
     WrongNumberGuesses,
 )
 from .utils.ids import Id, IdGenerator
+from .utils.warnings import Warning, WarningContent
+from .outcomes import SolveOutcome, FailureOutcome, FreedomAnalysis, SolveOutcomeFreedomAnalysis
+from .api import solve, solve_analysis
 
 __all__ = [
     "Config",
@@ -58,12 +66,20 @@ __all__ = [
     "Component",
     "Id",
     "IdGenerator",
+    "Warning",
+    "WarningContent",
     "EzpzError",
     "NonLinearSystemError",
     "MissingGuess",
     "WrongNumberGuesses",
     "EmptySystemNotAllowed",
     "TextualError",
+    "SolveOutcome",
+    "FailureOutcome",
+    "FreedomAnalysis",
+    "SolveOutcomeFreedomAnalysis",
+    "solve",
+    "solve_analysis",
 ]
 
 __version__ = "0.1.0"

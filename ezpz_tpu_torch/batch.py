@@ -13,6 +13,9 @@ sketch running its own Levenberg-Marquardt loop. The modes:
 * ``pallas_fused=True``: both phases in the fused fleet kernel
   (``ops/fused_fleet``).
 
+``solve_analysis`` adds the batched freedom analysis (``dof``), and
+``MultiTopologySolver`` runs several topologies' batches in turn.
+
 The kernel modes need ``precision="mixed"`` and ``batch_params=True`` (the
 JAX package asserts the same). They take a topology only when the kernel
 gate admits it (``fleet_plan.kernel_admits``: at most 256 instances, a
@@ -32,12 +35,14 @@ from typing import Optional, Tuple
 import torch
 
 from .config import Config
+from .dof import participation_device, underconstrained_from_participation
 from .models.compiled import CompiledSystem
 from .ops.coarse_fleet import coarse_fleet_solve
 from .ops.fleet_plan import kernel_admits, plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
-from .solver import (COARSE_TOLERANCE, LMResult, solve_lm, solve_lm_mixed,
-                     solve_lm_refine)
+from .solver import (COARSE_TOLERANCE, LMResult, resolve_device, solve_lm,
+                     solve_lm_mixed, solve_lm_refine)
+from .utils.errors import EmptySystemNotAllowed
 
 
 @dataclass
@@ -110,14 +115,12 @@ class BatchSolver:
         # Topology routing: the kernels take what their gate admits.
         self.kernel_ok = pallas_coarse and kernel_admits(system)
         self.plan = plan_fleet(system) if self.kernel_ok else None
-        # With strictly positive weights, satisfaction comes from the final
-        # weighted residual (no extra evaluation).
-        self._fast_sat = system.all_weights_positive()
 
-    def settings(self) -> dict:
+    def settings(self, config: Optional[Config] = None) -> dict:
         """The fused solver's trip counts and tolerances (as the JAX
-        package's ``_pallas_fused_fn`` passes them)."""
-        c = self.config
+        package's ``_pallas_fused_fn`` passes them), from ``config`` or the
+        solver's own."""
+        c = config or self.config
         return dict(
             coarse_trips=min(self.pallas_trips, c.max_iterations),
             refine_trips=self.refine_trips,
@@ -131,19 +134,17 @@ class BatchSolver:
             initial_lambda=c.initial_lambda,
         )
 
-    def coarse_settings(self) -> dict:
+    def coarse_settings(self, config: Optional[Config] = None) -> dict:
         """The coarse kernel's trips and tolerances (as the JAX package's
-        ``_pallas_coarse_fn`` passes them)."""
-        c = self.config
+        ``_pallas_coarse_fn`` passes them), from ``config`` or the solver's
+        own."""
+        c = config or self.config
         return dict(trips=min(self.pallas_trips, c.max_iterations),
                     tolerance=COARSE_TOLERANCE, step_tolerance=c.step_tolerance,
                     initial_lambda=c.initial_lambda)
 
     def _inputs(self, x0, pars):
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "BatchSolver runs on the GPU unless asked otherwise, and no "
-                "CUDA device is available; pass device='cpu' to solve on the CPU")
+        resolve_device(self.device)
         x0 = torch.as_tensor(x0, dtype=torch.float64, device=self.device)
         if not self.batch_params:
             return x0, None
@@ -153,16 +154,13 @@ class BatchSolver:
                          for p in pars)
 
     def _result(self, res: LMResult, pars) -> BatchResult:
-        if self._fast_sat:
-            sat = self.system.satisfaction_from_residual(res.residual)
-        else:
-            sat = self.system.constraint_satisfaction(res.x, pars)
+        sat = self.system.satisfaction(res.x, res.residual, pars)
         return BatchResult(x=res.x, iterations=res.iterations,
                            converged=res.converged, satisfied=sat,
                            degenerate=res.deg)
 
-    def _solve_plain(self, x0, pars) -> BatchResult:
-        c = self.config
+    def _solve_plain(self, x0, pars, config=None) -> BatchResult:
+        c = config or self.config
         args = (c.max_iterations, c.residual_tolerance, c.step_tolerance,
                 c.initial_lambda)
         if self.precision == "mixed":
@@ -173,27 +171,28 @@ class BatchSolver:
             res = solve_lm(self.system, x0, *args, pars=pars)
         return self._result(res, pars)
 
-    def coarse(self, x0: torch.Tensor, pars: Tuple):
+    def coarse(self, x0: torch.Tensor, pars: Tuple, config=None):
         """The coarse kernel on a batch: ``(x f32 (B, n), iterations (B,)
         int32, degenerate (B, n_cons) bool)``."""
         x, its, _conv, deg = coarse_fleet_solve(self.plan, x0, pars,
-                                                **self.coarse_settings())
+                                                **self.coarse_settings(config))
         return x, its, deg
 
     def refine(self, x1: torch.Tensor, its: torch.Tensor, deg: torch.Tensor,
-               pars: Tuple) -> BatchResult:
+               pars: Tuple, config=None) -> BatchResult:
         """The batched f64-residual refinement from a coarse result, with
         its budget of ``solver.REFINE_ITERATIONS`` trips (as the JAX
         package's ``refine_one`` calls ``solve_lm_refine``), then
         satisfaction."""
-        c = self.config
+        c = config or self.config
         res = solve_lm_refine(
             self.system, self.system32, x1, its, deg, c.max_iterations,
             c.residual_tolerance, c.step_tolerance, c.initial_lambda,
             pars64=pars, pars32=tuple(p.float() for p in pars))
         return self._result(res, pars)
 
-    def _finish_stragglers(self, result: BatchResult, x0, pars) -> BatchResult:
+    def _finish_stragglers(self, result: BatchResult, x0, pars,
+                           config=None) -> BatchResult:
         """Re-solve the lanes the fixed-trip kernel left unconverged through
         the plain mixed path (restarting from their original guesses) and
         merge. Costs one converged-mask sync per batch."""
@@ -201,7 +200,8 @@ class BatchSolver:
         if stragglers.numel() == 0:
             return result
         res = self._solve_plain(
-            x0[stragglers], None if pars is None else tuple(p[stragglers] for p in pars))
+            x0[stragglers], None if pars is None else tuple(p[stragglers] for p in pars),
+            config)
         merged = {}
         for name in ("x", "iterations", "converged", "satisfied", "degenerate"):
             t = getattr(result, name).clone()
@@ -210,9 +210,11 @@ class BatchSolver:
         return BatchResult(**merged)
 
     def solve(self, x0, pars: Optional[Tuple] = None,
-              finish_stragglers: bool = False) -> BatchResult:
+              finish_stragglers: bool = False,
+              config: Optional[Config] = None) -> BatchResult:
         """Solve the batch on ``self.device``; ``x0`` (B, n) and ``pars``
-        may be numpy arrays or tensors on any device.
+        may be numpy arrays or tensors on any device. ``config``, when
+        given, takes the place of the solver's own for this call.
 
         ``finish_stragglers`` (kernel modes only): lanes the fixed-trip
         kernel leaves unconverged are re-solved through the plain mixed path
@@ -220,18 +222,50 @@ class BatchSolver:
         mixed path in the kernel modes too."""
         x0, pars = self._inputs(x0, pars)
         if not self.kernel_ok:
-            return self._solve_plain(x0, pars)
+            return self._solve_plain(x0, pars, config)
         if self.pallas_fused:
-            out = BatchResult(*fused_fleet_solve(self.plan, x0, pars, **self.settings()))
+            out = BatchResult(*fused_fleet_solve(self.plan, x0, pars,
+                                                 **self.settings(config)))
         else:
-            out = self.refine(*self.coarse(x0, pars), pars)
+            out = self.refine(*self.coarse(x0, pars, config), pars, config)
         if finish_stragglers:
-            out = self._finish_stragglers(out, x0, pars)
+            out = self._finish_stragglers(out, x0, pars, config)
         return out
 
     def solve_analysis(self, x0, pars: Optional[Tuple] = None):
-        """Not ported yet: freedom analysis needs ``dof.py`` and a batched
-        ``jacobian_dense`` (ROADMAP.md queue 1 item 6)."""
-        raise NotImplementedError(
-            "BatchSolver.solve_analysis is not ported yet (ROADMAP.md queue 1 "
-            "item 6: dof.py and BatchSolver.solve_analysis)")
+        """Solve the batch AND run the freedom (DoF) analysis per sketch
+        (``ezpz/src/lib.rs:134-144``, ``solver/find_dof.rs:15-104``): the B
+        dense Jacobians at the solved points and their nullspace
+        participations are computed on ``self.device`` in one batched SVD,
+        then copied to the host once.
+
+        Returns ``(BatchResult, [FreedomAnalysis] * B)``."""
+        system = self.system
+        if min(system.n_rows, system.n_vars) == 0:
+            raise EmptySystemNotAllowed()
+        x0, pars = self._inputs(x0, pars)
+        res = self.solve(x0, pars)
+        parts, _null = participation_device(system.jacobian_dense(res.x, pars))
+        parts = parts.cpu().numpy()
+        return res, [underconstrained_from_participation(p) for p in parts]
+
+
+class MultiTopologySolver:
+    """Several same-config batches of DIFFERENT topologies (the buckets of
+    a decomposed sketch, ``models.blocks``), solved one after another on
+    one device: one ``BatchSolver`` per topology, with per-sketch
+    parameters, in the plain f64 or mixed mode.
+
+    ``solve`` takes equal-length lists of initial-guess batches and
+    per-sketch parameter tuples, and returns one ``BatchResult`` each."""
+
+    def __init__(self, systems, config: Config = Config(),
+                 precision: str = "f64", device=None):
+        self.systems = list(systems)
+        self.config = config
+        self._solvers = [BatchSolver(s, config, batch_params=True,
+                                     precision=precision, device=device)
+                         for s in self.systems]
+
+    def solve(self, x0s, parss):
+        return [s.solve(x0, pars) for s, x0, pars in zip(self._solvers, x0s, parss)]

@@ -5,6 +5,9 @@ are grouped by kernel type into ``(n_type, nvars)`` index arrays and
 ``(n_type, nparams)`` parameter arrays (host numpy, exactly as the JAX
 package builds them), and evaluated on torch tensors with a leading batch
 axis: one call evaluates a whole fleet of sketches sharing the topology.
+
+``jacobian_factors`` and ``jtj_matvec``, which serve only the matrix-free
+``solve_lm_cg``, are not ported yet (ROADMAP.md queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -60,6 +63,11 @@ class CompiledSystem:
                                    device=like.device)
         return pars[i]
 
+    def residual(self, x: torch.Tensor, pars=None) -> torch.Tensor:
+        """Weighted residual ``(..., n_rows)`` (the reference's
+        ``Model::residual``, ``solver.rs:318-356``, up to row order)."""
+        return self.residual_and_flags(x, pars)[0]
+
     def residual_and_flags(self, x: torch.Tensor, pars=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(weighted residual ``(..., n_rows)``, per-constraint degenerate
@@ -102,26 +110,14 @@ class CompiledSystem:
         right-hand side: ``jtr = J^T cast(rhs)``. ``x`` is cast likewise, so
         the call is valid on an f32 twin with f64 inputs."""
         x = x.to(self.dtype)
-        B, n = x.shape[0], self.n_vars
+        B = x.shape[0]
         dev = x.device
         parts, jj, jr = [], [], []
         deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
         slices = self.block_row_slices()
         for i, b in enumerate(self.blocks):
             spec = b.spec
-            idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
-            v = x[:, idx]  # (B, nb, nv)
-            vs = tuple(v[..., k] for k in range(spec.nvars))
-            p = self._pars(pars, i, x)
-            ps = [p[..., k] for k in range(spec.nparams)]
-            one, zero = torch.ones_like(vs[0]), torch.zeros_like(vs[0])
-            w = torch.as_tensor(b.weight, dtype=self.dtype, device=dev)
-            wjac = []
-            for a in range(spec.nvars):
-                tangent = tuple(one if r == a else zero for r in range(spec.nvars))
-                res, dres, deg = torch.func.jvp(
-                    lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent, has_aux=True)
-                wjac.append([dres[d] * w for d in range(spec.dim)])
+            res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
             if rhs is None:
                 wres = [res[d] * w for d in range(spec.dim)]
             else:
@@ -141,6 +137,50 @@ class CompiledSystem:
         else:
             r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
         return r, jtj, jtr, deg_acc > 0
+
+    def _weighted_jacobian(self, i: int, x: torch.Tensor, pars):
+        """Block ``i`` at ``x`` (B, n_vars): ``(res (dim, B, nb), wjac,
+        deg (B, nb), w (nb,))``, where ``wjac[a][d]`` (B, nb) is the
+        weighted derivative of row ``d`` by the instance's variable ``a``,
+        by ``torch.func.jvp`` with one one-hot tangent per variable."""
+        b = self.blocks[i]
+        spec = b.spec
+        dev = x.device
+        idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+        v = x[:, idx]  # (B, nb, nv)
+        vs = tuple(v[..., k] for k in range(spec.nvars))
+        p = self._pars(pars, i, x)
+        ps = [p[..., k] for k in range(spec.nparams)]
+        one, zero = torch.ones_like(vs[0]), torch.zeros_like(vs[0])
+        w = torch.as_tensor(b.weight, dtype=self.dtype, device=dev)
+        wjac = []
+        for a in range(spec.nvars):
+            tangent = tuple(one if r == a else zero for r in range(spec.nvars))
+            res, dres, deg = torch.func.jvp(
+                lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent, has_aux=True)
+            wjac.append([dres[d] * w for d in range(spec.dim)])
+        return res, wjac, deg, w
+
+    def jacobian_dense(self, x: torch.Tensor, pars=None) -> torch.Tensor:
+        """Weighted dense Jacobians ``(B, n_rows, n_vars)`` at ``x`` (B,
+        n_vars), rows in compiled row order (the freedom analysis's input).
+        An instance that names one variable twice adds both derivatives
+        into its column, as the JAX package's scatter-add does."""
+        x = x.to(self.dtype)
+        B = x.shape[0]
+        dev = x.device
+        J = torch.zeros((B, self.n_rows, self.n_vars), dtype=self.dtype, device=dev)
+        for i, (b, (lo, _hi)) in enumerate(zip(self.blocks, self.block_row_slices())):
+            nb, dim = int(b.idx.shape[0]), b.spec.dim
+            _res, wjac, _deg, _w = self._weighted_jacobian(i, x, pars)
+            rows = lo + (torch.arange(nb, device=dev)[:, None] * dim
+                         + torch.arange(dim, device=dev)[None, :])  # (nb, dim)
+            idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+            for a, col in enumerate(wjac):
+                # One variable slot at a time: its (row, column) pairs are
+                # distinct, so each update is a plain gather-add-scatter.
+                J[:, rows, idx[:, a:a + 1]] += torch.stack(col, dim=-1)
+        return J
 
     def _assemble(self, jj, jr, B, like):
         """Sum per-instance products into JtJ (B, n, n) and Jtr (B, n).
@@ -223,6 +263,11 @@ class CompiledSystem:
     def all_weights_positive(self) -> bool:
         return all(float(np.min(b.weight)) > 0.0 for b in self.blocks) if self.blocks else True
 
+    def param_arrays(self) -> Tuple[np.ndarray, ...]:
+        """The compile-time parameter arrays, aligned with ``blocks``: the
+        template of batched ``pars`` overrides."""
+        return tuple(b.par for b in self.blocks)
+
     def block_row_slices(self) -> Tuple[Tuple[int, int], ...]:
         """(start, stop) row ranges of each block inside the concatenated
         residual vector (compiled row order)."""
@@ -253,6 +298,15 @@ class CompiledSystem:
                                              device=r.device),
                          bad.to(torch.int32))
         return unsat == 0
+
+    def satisfaction(self, x: torch.Tensor, r: torch.Tensor, pars=None) -> torch.Tensor:
+        """Per-constraint satisfaction of a solved point ``x`` with its
+        weighted residual ``r``: read from ``r`` when every weight is
+        positive (no extra evaluation), else from a fresh evaluation at
+        ``x``."""
+        if self.all_weights_positive():
+            return self.satisfaction_from_residual(r)
+        return self.constraint_satisfaction(x, pars)
 
     def astype(self, dtype: torch.dtype) -> "CompiledSystem":
         """The same topology with parameters/weights in another dtype."""
@@ -326,6 +380,24 @@ def compile_system(
         blocks=tuple(blocks),
         dtype=dtype,
     )
+
+
+def topology_key(constraints: Sequence[Constraint], n_vars: int) -> tuple:
+    """A hashable key of the compiled topology: kernel ids, variable ids
+    and parameter values (the public API's solver cache key).
+
+    The per-constraint fragment is memoized on the (immutable) constraint:
+    this runs on every public solve."""
+    items = []
+    for c in constraints:
+        frag = c.__dict__.get("_topo_frag")
+        if frag is None:
+            frag = tuple(
+                (inst.kernel, inst.var_ids, inst.params) for inst in c.lower()
+            )
+            object.__setattr__(c, "_topo_frag", frag)
+        items.append(frag)
+    return (n_vars, tuple(items))
 
 
 def from_reference(fields) -> CompiledSystem:

@@ -15,14 +15,16 @@ leading batch axis of B lanes and the loop is written out:
   factorization is a rejected step, a step is accepted iff ``|r|^2``
   strictly drops, lambda times 0.1 on accept and 10 on reject.
 
-``solve_gauss_newton``, ``solve_lm_cg`` and ``make_solver`` are not ported
-yet (ROADMAP.md).
+``make_solver`` is the public API's single-sketch solver: a batch of one
+lane, packed into one tensor so that a solve costs one device-to-host copy.
+``solve_gauss_newton`` and ``solve_lm_cg`` are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
@@ -38,6 +40,18 @@ COARSE_TOLERANCE = 5e-6
 # The f64-residual refinement's trip budget per lane (``solve_lm_refine``'s
 # default in the JAX package, which its coarse-kernel path relies on).
 REFINE_ITERATIONS = 6
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card (``"cuda"``) unless the
+    caller names another. Raises when the card is wanted and there is
+    none: the port never answers on the CPU unasked."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ezpz_tpu_torch solves on the GPU unless asked otherwise, and no "
+            "CUDA device is available; pass device='cpu' to solve on the CPU")
+    return dev
 
 
 class LMState(NamedTuple):
@@ -254,3 +268,56 @@ def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
     return LMResult(x=final.x, iterations=coarse_iterations + refine_count,
                     converged=final.done | res_conv, deg=final.deg,
                     residual=final.r)
+
+
+def make_solver(system: CompiledSystem, max_iterations: int,
+                precision: str = "f64", device=None):
+    """A solver for one compiled topology on ``device`` (the card unless
+    the caller names another): ``run(x0, residual_tolerance,
+    step_tolerance, initial_lambda)`` solves one sketch from ``x0``
+    (n_vars,) as a batch of one lane.
+
+    ``precision="mixed"`` swaps ``solve_lm`` for ``solve_lm_mixed`` (f32
+    trips, then the f64-residual refinement; iteration counts are then not
+    the reference's).
+
+    ``run`` returns ONE packed 1-D f64 tensor on the device, ``[x (n_vars)
+    | sat (n_cons) | deg (n_cons) | converged | iterations]``, so the
+    caller makes one device-to-host copy per solve. Unpack its host copy
+    with ``unpack_solver_result``."""
+    if precision not in ("f64", "mixed"):
+        raise ValueError(f"precision must be 'f64' or 'mixed', got {precision!r}")
+    dev = resolve_device(device)
+    system32 = system.astype(torch.float32) if precision == "mixed" else None
+
+    def run(x0, residual_tolerance, step_tolerance, initial_lambda):
+        x = torch.as_tensor(x0, dtype=torch.float64, device=dev)[None]
+        args = (max_iterations, residual_tolerance, step_tolerance, initial_lambda)
+        if system32 is not None:
+            res = solve_lm_mixed(system, system32, x, *args)
+        else:
+            res = solve_lm(system, x, *args)
+        sat = system.satisfaction(res.x, res.residual)
+        return pack_result(res.x[0], sat[0], res.deg[0], res.converged[0],
+                           res.iterations[0])
+
+    return run
+
+
+def pack_result(x, sat, deg, converged, iterations) -> torch.Tensor:
+    """``[x | sat | deg | converged | iterations]`` as one f64 tensor on
+    ``x``'s device (the layout ``unpack_solver_result`` splits)."""
+    dt = x.dtype
+    return torch.cat([x, sat.to(dt), deg.to(dt),
+                      torch.stack([converged.to(dt), iterations.to(dt)])])
+
+
+def unpack_solver_result(packed: np.ndarray, n_vars: int, n_cons: int):
+    """Split the host copy of a packed solver result back into ``(x, sat,
+    deg, converged, iterations)`` (numpy views and Python scalars)."""
+    x = packed[:n_vars]
+    sat = packed[n_vars:n_vars + n_cons] != 0.0
+    deg = packed[n_vars + n_cons:n_vars + 2 * n_cons] != 0.0
+    converged = bool(packed[n_vars + 2 * n_cons])
+    iterations = int(packed[n_vars + 2 * n_cons + 1])
+    return x, sat, deg, converged, iterations

@@ -8,32 +8,45 @@ while its output path includes them (``executor.rs:549``) — a latent
 mixed-circle+arc indexing bug. We use the one consistent layout
 (points, circles, arcs) everywhere.
 
-A copy of ``ezpz_tpu.textual.executor`` holding ``to_constraint_system``
-and the ``ConstraintSystem`` data. The solve methods wait until this
-package has its own solver API.
+A copy of ``ezpz_tpu.textual.executor`` on the port's solve API: every
+solve method takes ``device`` (``None`` means the card, and raises on a
+machine without one; ``device="cpu"`` solves on the CPU).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
+from ..api import _solve_with_priority, time_resolves
+from ..api import solve as _solve
+from ..config import Config
 from ..constraints import Constraint, ConstraintRequest, LineSide
 from ..datatypes import (
     AngleKind,
+    Arc,
+    Circle,
     Component,
     DatumCircle,
     DatumCircularArc,
     DatumDistance,
     DatumLineSegment,
     DatumPoint,
+    Point,
 )
+from ..outcomes import FailureOutcome, FreedomAnalysis, SolveOutcome
 from ..utils.errors import TextualMissingGuess, UndefinedPoint, UnusedGuesses
+from ..utils.warnings import Warning
 from .problem import Instruction, Label, Problem
+
+VARS_PER_POINT = 2
+VARS_PER_CIRCLE = 3
+VARS_PER_ARC = 6
+
 
 @dataclass
 class ConstraintSystem:
-    """A constraint system built from the textual format."""
+    """A solvable system built from the textual format."""
 
     constraints: List[ConstraintRequest]
     initial_guesses: List[Tuple[int, float]]
@@ -41,6 +54,130 @@ class ConstraintSystem:
     inner_circles: List[Label]
     inner_arcs: List[Label]
     inner_lines: List[Tuple[Label, Label]]
+
+    # -- solving -------------------------------------------------------------
+
+    def solve_no_metadata(self, config: Config = Config(), device=None) -> SolveOutcome:
+        return _solve(self.constraints, self.initial_guesses, config, device=device)
+
+    def solve(self, device=None) -> "Outcome":
+        return self.solve_with_config(Config(), device=device)
+
+    def solve_with_config(self, config: Config, device=None) -> "Outcome":
+        _analysis, outcome = self._solve_inner(config, False, device)
+        return outcome
+
+    def time_resolves(self, config: Config = Config(), iters: int = 100,
+                      pipelined: bool = False, device=None) -> float:
+        """Mean seconds per re-solve (the CLI's 100x timing protocol);
+        ``pipelined=True`` synchronizes once at the end — see
+        ``ezpz_tpu_torch.api.time_resolves``."""
+        return time_resolves(self.constraints, self.initial_guesses, config,
+                             iters=iters, pipelined=pipelined, device=device)
+
+    def solve_with_config_analysis(self, config: Config = Config(),
+                                   device=None) -> "OutcomeAnalysis":
+        analysis, outcome = self._solve_inner(config, True, device)
+        assert analysis is not None
+        return OutcomeAnalysis(analysis=analysis, outcome=outcome)
+
+    def _solve_inner(self, config: Config, want_analysis: bool, device):
+        num_vars = len(self.initial_guesses)
+        num_eqs = sum(r.constraint.residual_dim() for r in self.constraints)
+        analysis, so = _solve_with_priority(
+            self.constraints, self.initial_guesses, config, want_analysis, device
+        )
+        fv = so.final_values
+
+        points: Dict[str, Point] = {}
+        for i, label in enumerate(self.inner_points):
+            points[label] = Point(fv[2 * i], fv[2 * i + 1])
+        start_of_circles = VARS_PER_POINT * len(self.inner_points)
+        circles: Dict[str, Circle] = {}
+        for i, label in enumerate(self.inner_circles):
+            base = start_of_circles + VARS_PER_CIRCLE * i
+            circles[label] = Circle(
+                radius=fv[base + 2], center=Point(fv[base], fv[base + 1])
+            )
+        start_of_arcs = start_of_circles + VARS_PER_CIRCLE * len(self.inner_circles)
+        arcs: Dict[str, Arc] = {}
+        for i, label in enumerate(self.inner_arcs):
+            base = start_of_arcs + VARS_PER_ARC * i
+            arcs[label] = Arc(
+                a=Point(fv[base], fv[base + 1]),
+                b=Point(fv[base + 2], fv[base + 3]),
+                center=Point(fv[base + 4], fv[base + 5]),
+            )
+
+        outcome = Outcome(
+            unsatisfied=so.unsatisfied,
+            iterations=so.iterations,
+            warnings=so.warnings,
+            points=points,
+            circles=circles,
+            arcs=arcs,
+            lines=list(self.inner_lines),
+            num_vars=num_vars,
+            num_eqs=num_eqs,
+            priority_solved=so.priority_solved,
+            converged=so.converged,
+            final_values=fv,
+        )
+        return analysis, outcome
+
+
+@dataclass
+class Outcome:
+    """Outcome of solving a textual system (``executor.rs:588-613``)."""
+
+    unsatisfied: List[int]
+    iterations: int
+    warnings: List[Warning]
+    points: Dict[str, Point]
+    circles: Dict[str, Circle]
+    arcs: Dict[str, Arc]
+    lines: List[Tuple[Label, Label]]
+    num_vars: int
+    num_eqs: int
+    priority_solved: int
+    converged: bool
+    final_values: List[float] = field(default_factory=list)
+
+    def get_point(self, label: str) -> Optional[Point]:
+        return self.points.get(label)
+
+    def get_circle(self, label: str) -> Optional[Circle]:
+        return self.circles.get(label)
+
+    def get_arc(self, label: str) -> Optional[Arc]:
+        return self.arcs.get(label)
+
+    def is_satisfied(self) -> bool:
+        return not self.unsatisfied
+
+    def is_unsatisfied(self) -> bool:
+        return bool(self.unsatisfied)
+
+
+@dataclass
+class OutcomeAnalysis:
+    analysis: FreedomAnalysis
+    outcome: Outcome
+
+    def get_point(self, label: str) -> Optional[Point]:
+        return self.outcome.get_point(label)
+
+    def get_circle(self, label: str) -> Optional[Circle]:
+        return self.outcome.get_circle(label)
+
+    def get_arc(self, label: str) -> Optional[Arc]:
+        return self.outcome.get_arc(label)
+
+    def is_satisfied(self) -> bool:
+        return self.outcome.is_satisfied()
+
+    def is_unsatisfied(self) -> bool:
+        return self.outcome.is_unsatisfied()
 
 
 def to_constraint_system(problem: Problem) -> ConstraintSystem:

@@ -278,6 +278,8 @@ def test_port_imports_no_jax():
         "import ezpz_tpu_torch.ops._build, ezpz_tpu_torch.ops.fleet_plan\n"
         "import ezpz_tpu_torch.solver, ezpz_tpu_torch.ops.linalg\n"
         "import ezpz_tpu_torch.ops.coarse_fleet\n"
+        "import ezpz_tpu_torch.api, ezpz_tpu_torch.dof, ezpz_tpu_torch.outcomes\n"
+        "import ezpz_tpu_torch.cli, ezpz_tpu_torch.viz, ezpz_tpu_torch.utils.warnings\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"
         "assert not bad, bad\n"

@@ -175,10 +175,12 @@ def test_degenerate_and_nan_rows():
 
 
 def test_unsupported_modes_raise():
-    """What the port still refuses: a kernel mode without per-sketch
-    parameters or in f64 (the JAX package asserts there too), an unknown
-    precision, ``solve_analysis`` (ROADMAP), and a non-f64 ``x0`` at the
-    kernel wrapper."""
+    """What the port refuses: a kernel mode without per-sketch parameters
+    or in f64 (the JAX package asserts there too), an unknown precision,
+    ``solve_analysis`` of a system with no rows (``EmptySystemNotAllowed``,
+    as in the JAX package), and a non-f64 ``x0`` at the kernel wrapper."""
+    from ezpz_tpu_torch.utils.errors import EmptySystemNotAllowed
+
     from ezpz_tpu_torch.models.compiled import compile_system
     from ezpz_tpu_torch.constraints import Constraint
 
@@ -194,8 +196,10 @@ def test_unsupported_modes_raise():
                           precision="mixed", pallas_fused=True, device="cpu")
     x0 = torch.zeros((2, 1), dtype=torch.float64)
     pars = (torch.ones((2, 1, 1), dtype=torch.float64),)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solver.solve_analysis(x0, pars)
+    with pytest.raises(EmptySystemNotAllowed):
+        TBatchSolver(compile_system([], n_vars=1), TConfig(), batch_params=True,
+                     precision="mixed", pallas_fused=True,
+                     device="cpu").solve_analysis(x0, ())
     with pytest.raises(ValueError):
         solver.solve(x0)
     with pytest.raises(ValueError):
