@@ -74,7 +74,26 @@ Phases (any failure exits non-zero before the result line):
    ``underconstrained`` (its pinned point q; p is in no constraint),
    ``perpdist`` and ``parallelogram`` (2 and 4 free variables) and
    ``square`` at 4096 seeded perturbations each, on the card and on the
-   CPU: converged flags and underconstrained lists equal lane for lane.
+   CPU: converged flags and underconstrained lists equal lane for lane;
+7. the serving path on the card (``phase7``):
+   (a) the native parser and union-find (``ezpz_tpu_torch/native``) built
+   with g++ and loaded, or the phase fails; every fixture parses to the
+   same ``Problem`` natively and in Python, the tiled sketch's union-find
+   gives the same roots both ways, each timed against Python;
+   (b) ``serve.SolverService()`` with its defaults (the card, mixed, the
+   fused kernel): every fixture sent twice (cold, warm) against a CPU f64
+   service (flags equal, points within 1e-6 when fully constrained), one
+   fused launch per request the kernel gate admits and none otherwise
+   (``massive_parallel_system``, over the gate, answered on the batched
+   mixed path); a burst of BURST perturbed ``two_rectangles`` requests
+   from CLIENTS threads, mixed and then f64 per request, against
+   ``BatchSolver(precision="f64")`` on the CPU, one fused launch per
+   batch, with requests per second, p50 and p99 latency, and beside it
+   the same lanes as one ``BatchSolver.solve`` (CUDA events) and the
+   host's parse time; ``serve.benchmark`` (sequential requests);
+   (c) the HTTP front end (``serve.make_handler``): routes, the
+   X-Precision header, ``/healthz``, 404 and the 400 error body;
+   (d) the embed probes on the card against the CPU, timed.
 
 The line before the last is a JSON record per kernel: launches in its main
 path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
@@ -110,6 +129,13 @@ MIDSIZE = ("arc_length[0]", "chamfer_square[0]", "parallelogram[0]", "square[0]"
            "rect_chain(8)[0]", "chain(40)[0]")
 X_TOL = 1e-6
 ITER_EQUAL_MIN = 0.999
+# Phase 7: the service's burst, its sequential rate, the embed probe.
+BURST = 4096
+CLIENTS = 64
+BURST_SIGMA = 1e-2
+BURST_WINDOW_MS = 20.0
+SEQUENTIAL_N = 50
+EMBED_CALLS = 20
 # NVIDIA H100 SXM data sheet: memory rate, f32 and f64 rates outside the
 # tensor cores (at the full 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -200,15 +226,8 @@ def chain(n_points):
 def topologies():
     """(label, constraints, x0) for every corpus fixture, rect_chain(8), and
     the big topologies at and below the kernel gate's edge."""
-    from ezpz_tpu_torch.textual import Problem
-
-    cases = os.path.join(HERE, "tests", "cases")
-    for name in sorted(os.listdir(cases)):
-        path = os.path.join(cases, name, "problem.md")
-        if not os.path.exists(path):
-            continue
-        with open(path) as fh:
-            cs = Problem.from_str(fh.read()).to_constraint_system()
+    for name in fixture_names():
+        cs = system_of(fixture_text(name))
         x0 = guesses(cs)
         yield name, [r.constraint.set_from_initial_values(x0) for r in cs.constraints], x0
     cons, x0 = rect_chain(8)
@@ -702,17 +721,20 @@ def outcome_key(res):
 
 
 def phase6a(dev):
-    """The corpus through the textual API on the card and on the CPU."""
+    """The corpus through the textual API on the card and on the CPU.
+    Returns the names of the fully constrained fixtures."""
     from ezpz_tpu_torch.config import Config
 
     with open(os.path.join(HERE, "tests", "golden_iterations.json")) as fh:
         pins = json.load(fh)
-    bad = []
+    bad, fully = [], set()
     for name in sorted(pins):
         cs = system_of(fixture_text(name))
         card = cs.solve_with_config_analysis(Config(), device=dev)
         cpu = cs.solve_with_config_analysis(Config(), device="cpu")
         full = not cpu.analysis.is_underconstrained()
+        if full:
+            fully.add(name)
         dx = max((abs(a - b) for a, b in zip(card.outcome.final_values,
                                              cpu.outcome.final_values)), default=0.0)
         same = outcome_key(card) == outcome_key(cpu)
@@ -727,11 +749,13 @@ def phase6a(dev):
                          f"misses a pinned iteration count on {bad}")
     print(f"phase6a ok: {len(pins)} fixtures equal on card and CPU, card on every pin",
           flush=True)
+    return fully
 
 
 def phase6b(dev, card):
     """``solve`` on the decomposed route at full size, and the CLI's timing
-    protocol on the card and on the CPU."""
+    protocol on the card and on the CPU. Returns the card's synchronous us
+    per solve by sketch."""
     import ezpz_tpu_torch
     from ezpz_tpu_torch import api
     from ezpz_tpu_torch.config import Config
@@ -756,6 +780,7 @@ def phase6b(dev, card):
     runs = [(name, system_of(fixture_text(name)), d, API_ITERS) for name in API_FIXTURES
             for d in (dev, "cpu")]
     runs.append((f"massive x{TILES} tiled", tiled, dev, TILED_ITERS))
+    card_us = {}
     for name, cs, d, iters in runs:
         cs.solve_with_config(Config(), device=d)  # build the solver once, untimed
         sync = cs.time_resolves(Config(), iters=iters, device=d)
@@ -765,7 +790,9 @@ def phase6b(dev, card):
               f"synchronous, {piped * 1e6!r} us/solve pipelined (mean of {iters}); "
               f"card: {card}", flush=True)
         if where == "card":
+            card_us[name] = sync * 1e6
             print(f"phase6b profile {name} on the card: {profile_solve(cs, d)}", flush=True)
+    return card_us
 
 
 def profile_solve(cs, dev):
@@ -892,13 +919,418 @@ def phase6d(dev):
 
 
 def phase6(dev, card):
-    times = []
+    """Returns the fully constrained fixtures (6a) and the card's
+    synchronous ``time_resolves`` per fixture in us (6b)."""
+    times, results = [], []
     for part in (lambda: phase6a(dev), lambda: phase6b(dev, card),
                  lambda: phase6c(dev), lambda: phase6d(dev)):
         t0 = time.perf_counter()
-        part()
+        results.append(part())
         times.append(round(time.perf_counter() - t0, 1))
     print(f"phase6 ok: {sum(times):.1f} s (a, b, c, d: {times} s)", flush=True)
+    return results[0], results[1]
+
+
+def fixture_names():
+    cases = os.path.join(HERE, "tests", "cases")
+    return sorted(n for n in os.listdir(cases)
+                  if os.path.exists(os.path.join(cases, n, "problem.md")))
+
+
+def problem_tuple(p):
+    """Everything a parser puts in a ``Problem``, for exact comparison."""
+    return ([(i.op, tuple(i.labels), i.value,
+              None if i.component is None else i.component.value,
+              None if i.angle is None else (i.angle.val, i.angle.degrees))
+             for i in p.instructions],
+            p.inner_points, p.inner_circles, p.inner_arcs, p.inner_lines,
+            [(g.point, g.x, g.y) for g in p.point_guesses],
+            [(g.scalar, g.guess) for g in p.scalar_guesses])
+
+
+def host_seconds(fn, reps=REPS):
+    """(median host seconds of ``reps`` calls of ``fn``, its last result)."""
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[reps // 2], out
+
+
+def phase7a(card):
+    """The native parser and union-find: built with g++ from the checkout,
+    equal to the Python paths, and timed against them."""
+    import numpy as np
+
+    from ezpz_tpu_torch import native
+    from ezpz_tpu_torch.models import blocks
+    from ezpz_tpu_torch.textual import parser
+
+    if os.environ.get("EZPZ_NO_NATIVE"):
+        raise SystemExit("chip_smoke: EZPZ_NO_NATIVE is set; phase 7 needs the native path")
+    t0 = time.perf_counter()
+    fastparse, fastdecomp = native.load_fastparse(), native.load_fastdecomp()
+    built = time.perf_counter() - t0
+    if fastparse is None or fastdecomp is None:
+        raise SystemExit(f"chip_smoke: the native modules did not build or load "
+                         f"(fastparse {fastparse}, fastdecomp {fastdecomp})")
+    print(f"phase7a native: built and loaded in {built!r} s: "
+          f"{os.path.relpath(fastparse.__file__, HERE)}, "
+          f"{os.path.relpath(fastdecomp.__file__, HERE)}", flush=True)
+
+    names = fixture_names()
+    bad = [name for name in names
+           if problem_tuple(parser._problem_from_native(fastparse.parse(fixture_text(name))))
+           != problem_tuple(parser._parse_problem_py(fixture_text(name)))]
+    print(f"phase7a parse: {len(names) - len(bad)}/{len(names)} fixtures give the same "
+          f"Problem natively and in Python", flush=True)
+    if bad:
+        raise SystemExit(f"chip_smoke: the native parser differs from Python on {bad}")
+    text = fixture_text("massive_parallel_system")
+    nat, _ = host_seconds(lambda: parser.parse_problem(text))
+    py, _ = host_seconds(lambda: parser._parse_problem_py(text))
+    print(f"phase7a parse massive_parallel_system: native {nat * 1e3!r} ms, Python "
+          f"{py * 1e3!r} ms ({py / nat!r}x; host clock, median of {REPS}); card: {card}",
+          flush=True)
+
+    cs = system_of(tiled_text("massive_parallel_system", TILES))
+    n = len(cs.initial_guesses)
+    deps = [r.constraint.dependent_variable_ids() for r in cs.constraints]
+    nat, roots = host_seconds(lambda: blocks._component_roots_native(deps, n))
+    py, py_roots = host_seconds(lambda: blocks._component_roots_python(deps, n))
+    offsets = np.cumsum([0] + [len(ids) for ids in deps], dtype=np.int32)
+    flat = np.array([v for ids in deps for v in ids], dtype=np.int32)
+    sweep, _ = host_seconds(lambda: fastdecomp.components(n, offsets, flat))
+    comps = blocks.connected_components([r.constraint for r in cs.constraints], n)
+    print(f"phase7a union-find massive x{TILES} tiled ({n} variables, {len(deps)} "
+          f"constraints, {len(comps)} components): native {nat * 1e3!r} ms (its C++ "
+          f"sweep alone {sweep * 1e3!r} ms), Python {py * 1e3!r} ms ({py / nat!r}x; host "
+          f"clock, median of {REPS}); roots equal {roots == py_roots}; card: {card}",
+          flush=True)
+    if roots != py_roots:
+        raise SystemExit("chip_smoke: the native union-find differs from Python")
+
+
+def answer_vector(out, labels):
+    """A service answer's point coordinates in variable order."""
+    import numpy as np
+
+    return np.array([c for label in labels for c in out["points"][label]])
+
+
+def same_answer(out, ref, full):
+    """Equal flags, and points within X_TOL when fully constrained."""
+    import numpy as np
+
+    if (out["converged"], out["unsatisfied"]) != (ref["converged"], ref["unsatisfied"]):
+        return False, float("nan")
+    labels = list(ref["points"])
+    dx = float(np.abs(answer_vector(out, labels) - answer_vector(ref, labels)).max(initial=0.0))
+    return dx <= X_TOL or not full, dx
+
+
+def phase7_corpus(svc, cpu, full, card):
+    """Every fixture as one request, twice (cold, then warm), to the card's
+    service and once to the CPU's f64 service. Returns the oversized
+    topology's record."""
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.ops import fused_fleet
+    from ezpz_tpu_torch.ops.fleet_plan import kernel_admits
+
+    admitted, refused, bad, oversized = [], [], [], None
+    fused_fleet.LAUNCHES = 0
+    for name in fixture_names():
+        text = fixture_text(name)
+        cs = system_of(text)
+        x0 = guesses(cs)
+        system = compile_system([r.constraint.set_from_initial_values(x0)
+                                 for r in cs.constraints], len(x0))
+        ok = kernel_admits(system)
+        instances = sum(b.idx.shape[0] for b in system.blocks)
+        before = fused_fleet.LAUNCHES
+        t0 = time.perf_counter()
+        cold = svc.solve_text(text, timeout=600)
+        t1 = time.perf_counter()
+        warm = svc.solve_text(text, timeout=600)
+        t2 = time.perf_counter()
+        launches = fused_fleet.LAUNCHES - before
+        ref = cpu.solve_text(text, timeout=600)
+        (same_cold, dx), (same_warm, dx_warm) = (same_answer(cold, ref, name in full),
+                                                  same_answer(warm, ref, name in full))
+        (admitted if ok else refused).append(name)
+        print(f"phase7b corpus {name}: gate {'admits' if ok else 'refuses'} "
+              f"({instances} instances), {launches} fused "
+              f"launches for 2 requests; converged {cold['converged']} unsatisfied "
+              f"{cold['unsatisfied']} (cpu f64 {ref['converged']} {ref['unsatisfied']}); "
+              f"max |x_card - x_cpu| {dx!r} / {dx_warm!r}, fully constrained "
+              f"{name in full}; cold {(t1 - t0) * 1e3!r} ms, warm {(t2 - t1) * 1e3!r} ms; "
+              f"card: {card}", flush=True)
+        if not (same_cold and same_warm and cold["precision"] == "mixed"
+                and launches == (2 if ok else 0)):
+            bad.append(name)
+        if name == "massive_parallel_system":
+            oversized = dict(ok=ok, instances=instances, launches=launches, answer=warm,
+                             cold=t1 - t0, warm=t2 - t1)
+    print(f"phase7b corpus: {fused_fleet.LAUNCHES} fused launches; admitted {admitted}; "
+          f"refused {refused}", flush=True)
+    if bad or fused_fleet.LAUNCHES != 2 * len(admitted):
+        raise SystemExit(f"chip_smoke: the card's service disagrees with the CPU's or "
+                         f"launched wrongly on {bad}")
+    return oversized
+
+
+def burst_texts(rng):
+    """BURST copies of ``two_rectangles``, each point guess moved by
+    N(0, BURST_SIGMA)."""
+    base = fixture_text("two_rectangles")
+
+    def text():
+        def move(m):
+            x = float(m.group(1)) + rng.normal(0, BURST_SIGMA)
+            y = float(m.group(2)) + rng.normal(0, BURST_SIGMA)
+            return f"roughly ({x!r}, {y!r})"
+        return re.sub(r"roughly \(([^,]+),([^)]+)\)", move, base)
+    return [text() for _ in range(BURST)]
+
+
+def send_burst(svc, texts, precision):
+    """``texts`` from CLIENTS threads, each sending its share one request
+    after another: (answers, per-request seconds, wall seconds)."""
+    import threading
+
+    answers, lat, errors = [None] * len(texts), [0.0] * len(texts), []
+
+    def client(c):
+        for i in range(c, len(texts), CLIENTS):
+            t0 = time.perf_counter()
+            try:
+                answers[i] = svc.solve_text(texts[i], timeout=600, precision=precision)
+            except Exception as e:  # reported below; the phase fails on any
+                errors.append(f"{i}: {e}")
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise SystemExit(f"chip_smoke: burst ({precision}) failed: {errors[:5]}")
+    return answers, lat, wall
+
+
+def phase7_burst(dev, card):
+    """BURST ``two_rectangles`` requests from CLIENTS threads to one card
+    service (window BURST_WINDOW_MS), mixed by default and then f64 per
+    request, against ``BatchSolver(precision="f64")`` on the CPU; then the
+    batch alone on the card (CUDA events) and the host's parse time."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch import serve
+    from ezpz_tpu_torch.batch import BatchSolver
+    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.ops import coarse_fleet, fused_fleet
+    from ezpz_tpu_torch.textual import parser
+
+    texts = burst_texts(np.random.default_rng(7))
+    systems = [p.to_constraint_system() for p in map(parser.parse_problem, texts)]
+    labels = systems[0].inner_points
+    x0 = np.stack([guesses(cs) for cs in systems])
+    system = compile_system([r.constraint for r in systems[0].constraints], x0.shape[1])
+    t0 = time.perf_counter()
+    ref = BatchSolver(system, Config(), device="cpu").solve(x0)
+    print(f"phase7b burst reference: BatchSolver f64 on the CPU, {BURST} lanes, "
+          f"{time.perf_counter() - t0!r} s, all converged {bool(ref.converged.all())}",
+          flush=True)
+    ref_x = ref.x.numpy()
+
+    svc = serve.SolverService(batch_window_ms=BURST_WINDOW_MS, max_batch=BURST)
+    try:
+        for precision in (None, "f64"):
+            t0 = time.perf_counter()
+            svc.solve_text(texts[0], timeout=600, precision=precision)
+            cold = time.perf_counter() - t0
+            batches = svc.stats["batches"]
+            fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = 0
+            answers, lat, wall = send_burst(svc, texts, precision)
+            launches, coarse = fused_fleet.LAUNCHES, coarse_fleet.LAUNCHES
+            batches = svc.stats["batches"] - batches
+            label = precision or svc.precision
+            dx = max(float(np.abs(answer_vector(a, labels) - x).max())
+                     for a, x in zip(answers, ref_x))
+            good = all(a["converged"] and not a["unsatisfied"] and a["precision"] == label
+                       for a in answers)
+            lat.sort()
+            print(f"phase7b burst {label}: {BURST} requests from {CLIENTS} clients in "
+                  f"{wall!r} s: {BURST / wall!r} requests/s, latency p50 "
+                  f"{lat[len(lat) // 2] * 1e3!r} ms p99 {lat[int(0.99 * len(lat))] * 1e3!r} ms, "
+                  f"{batches} batches ({BURST / batches!r} requests each), fused launches "
+                  f"{launches}, coarse {coarse}; all converged and satisfied {good}, max "
+                  f"|x - x_cpu_f64| {dx!r}; first request (solver build) {cold * 1e3!r} ms; "
+                  f"card: {card}", flush=True)
+            want = batches if label == "mixed" else 0
+            if not (good and dx <= X_TOL and batches <= BURST // 8 and launches == want
+                    and coarse == 0):
+                raise SystemExit(f"chip_smoke: the {label} burst failed")
+    finally:
+        svc.shutdown()
+
+    # The same lanes as one batch, alone: where the device time goes.
+    xb = torch.as_tensor(x0, device=dev)
+    pars = tuple(torch.as_tensor(b.par, device=dev).expand(BURST, -1, -1).contiguous()
+                 for b in system.blocks)
+    for precision, fused in (("mixed", True), ("f64", False)):
+        solver = BatchSolver(system, Config(), batch_params=True, precision=precision,
+                             pallas_fused=fused, device=dev)
+        wall, (ms,), _walls = timed(around(lambda k: solver.solve(
+            xb + k * 1e-9, pars, finish_stragglers=solver.pallas_fused)))
+        print(f"phase7b burst lanes alone: BatchSolver.solve {precision}"
+              f"{' fused' if fused else ''} on {BURST} lanes {ms!r} ms CUDA events, "
+              f"{wall * 1e3!r} ms host (median of {REPS}); card: {card}", flush=True)
+    nat, _ = host_seconds(lambda: [parser.parse_problem(t) for t in texts], reps=1)
+    py, _ = host_seconds(lambda: [parser._parse_problem_py(t) for t in texts], reps=1)
+    print(f"phase7b burst parse of the {BURST} texts on the host: native {nat * 1e3!r} ms, "
+          f"Python {py * 1e3!r} ms; card: {card}", flush=True)
+
+
+def http_call(port, method, path, body=None, headers=None):
+    """(status, JSON body or None) from the service on 127.0.0.1."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return resp.status, (json.loads(data) if data else None)
+
+
+def phase7_http(svc, cpu):
+    """The card's service behind ``serve.make_handler``: routes, the
+    X-Precision header and the error body."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from ezpz_tpu_torch import serve
+
+    text = fixture_text("tiny")
+    ref = cpu.solve_text(text, timeout=600)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        mixed = http_call(port, "POST", "/solve", text.encode())
+        f64 = http_call(port, "POST", "/solve", text.encode(), {"X-Precision": "f64"})
+        health = http_call(port, "GET", "/healthz")
+        missing = [http_call(port, m, "/nope", b"x" if m == "POST" else None)[0]
+                   for m in ("GET", "POST")]
+        bad = http_call(port, "POST", "/solve", b"this is not a problem")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    checks = {
+        "mixed": mixed[0] == 200 and mixed[1]["precision"] == "mixed"
+        and same_answer(mixed[1], ref, True)[0],
+        "f64": f64[0] == 200 and f64[1]["precision"] == "f64"
+        and f64[1]["iterations_comparable"] is True
+        and f64[1]["iterations"] == ref["iterations"] and same_answer(f64[1], ref, True)[0],
+        "healthz": health[0] == 200 and health[1]["ok"] is True
+        and health[1]["requests"] >= 2,
+        "404": missing == [404, 404],
+        "400": bad[0] == 400 and "error" in bad[1],
+    }
+    print(f"phase7c http: {json.dumps(checks)}; healthz {json.dumps(health[1])}", flush=True)
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: the HTTP front end failed")
+
+
+def phase7_embed(card):
+    """The embedding probes on the card, against the CPU."""
+    import numpy as np
+
+    from ezpz_tpu_torch import embed
+
+    vals, cpu_vals = embed.benchmark(), embed.benchmark(device="cpu")
+    dx = float(np.abs(np.subtract(vals, cpu_vals)).max())
+    card_s, _ = host_seconds(lambda: [embed.benchmark() for _ in range(EMBED_CALLS)], reps=1)
+    cpu_s, _ = host_seconds(lambda: [embed.benchmark(device="cpu")
+                                     for _ in range(EMBED_CALLS)], reps=1)
+    checks = dict(hello=embed.hello() == 33, test_linalg=embed.test_linalg() == 1.0,
+                  benchmark=len(vals) == 14 and dx <= 1e-9)
+    print(f"phase7d embed: {json.dumps(checks)}, max |card - cpu| {dx!r}; benchmark() "
+          f"{card_s / EMBED_CALLS * 1e3!r} ms per call on the card, "
+          f"{cpu_s / EMBED_CALLS * 1e3!r} ms on the CPU (mean of {EMBED_CALLS}); "
+          f"card: {card}", flush=True)
+    if not all(checks.values()):
+        raise SystemExit("chip_smoke: the embed probes failed on the card")
+
+
+def phase7(dev, card, full, api_us):
+    """The serving path on the card: native front end (a), the service's
+    corpus, burst, oversized topology and sequential rate (b), HTTP (c),
+    embed (d)."""
+    from ezpz_tpu_torch import serve
+
+    svc = serve.SolverService()
+    cpu = serve.SolverService(device="cpu", precision="f64")
+    try:
+        if not (svc.device.type == "cuda" and svc.precision == "mixed" and svc.pallas_fused):
+            raise SystemExit(f"chip_smoke: SolverService() resolved to {svc.device}, "
+                             f"{svc.precision}, fused {svc.pallas_fused}")
+        times = []
+        for part in (lambda: phase7a(card),
+                     lambda: phase7_oversized(phase7_corpus(svc, cpu, full, card), card),
+                     lambda: phase7_burst(dev, card),
+                     lambda: phase7_sequential(card, api_us),
+                     lambda: phase7_http(svc, cpu),
+                     lambda: phase7_embed(card)):
+            t0 = time.perf_counter()
+            part()
+            times.append(round(time.perf_counter() - t0, 1))
+    finally:
+        svc.shutdown()
+        cpu.shutdown()
+    print(f"phase7 ok: {sum(times):.1f} s (native, corpus, burst, sequential, http, "
+          f"embed: {times} s)", flush=True)
+
+
+def phase7_oversized(big, card):
+    """The corpus's one topology over the kernel gate: answered on the
+    batched mixed path, no launch."""
+    a = big["answer"]
+    print(f"phase7b oversized massive_parallel_system: {big['instances']} instances, "
+          f"gate admits {big['ok']}, fused launches {big['launches']}; converged "
+          f"{a['converged']}, unsatisfied {len(a['unsatisfied'])}; cold "
+          f"{big['cold'] * 1e3!r} ms, warm {big['warm'] * 1e3!r} ms; card: {card}",
+          flush=True)
+    if big["ok"] or big["launches"] or not a["converged"] or a["unsatisfied"]:
+        raise SystemExit("chip_smoke: the oversized request failed")
+
+
+def phase7_sequential(card, api_us):
+    """``serve.benchmark`` on the card: one request at a time, each a batch
+    of one through the fused kernel."""
+    from ezpz_tpu_torch import serve
+    from ezpz_tpu_torch.ops import fused_fleet
+
+    fused_fleet.LAUNCHES = 0
+    rate = serve.benchmark(n=SEQUENTIAL_N)
+    print(f"phase7b sequential: serve.benchmark(n={SEQUENTIAL_N}) {rate!r} solves/s "
+          f"({1e3 / rate!r} ms per request), fused launches {fused_fleet.LAUNCHES}; the "
+          f"API's synchronous time_resolves of two_rectangles (phase 6b) "
+          f"{api_us['two_rectangles'] / 1e3!r} ms; card: {card}", flush=True)
+    if fused_fleet.LAUNCHES != SEQUENTIAL_N + 1:
+        raise SystemExit("chip_smoke: serve.benchmark did not launch once per request")
 
 
 def kernel_ms(solvers, entry, plain=False):
@@ -973,7 +1405,8 @@ def main() -> int:
     phase3c(dev, card)
     fused = phase4(dev, card)
     coarse = phase5(dev, card)
-    phase6(dev, card)
+    full, api_us = phase6(dev, card)
+    phase7(dev, card, full, api_us)
     kernels = []
     for name, rec, line in (("fused_fleet", fused, 898), ("coarse_fleet", coarse, 598)):
         kernels.append({

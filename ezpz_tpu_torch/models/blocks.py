@@ -21,9 +21,9 @@ On top of the buckets, as in the JAX package:
 Semantics: each component runs its own LM loop (per-component lambda and
 convergence); ``iterations`` is the max over components.
 
-The union-find is the JAX package's pure-Python one
-(``_component_roots_python``); its native C++ twin is not part of this
-package yet.
+The union-find runs in the native C++ extension
+(``native/fastdecomp.cpp``) when it builds, and in Python
+(``_component_roots_python``) otherwise, with identical results.
 """
 
 from __future__ import annotations
@@ -58,9 +58,17 @@ def connected_components(
     constraints: Sequence[Constraint], n_vars: int
 ) -> List[Component]:
     """Union-find over the variable-sharing graph, components ordered by
-    their first constraint id."""
+    their first constraint id.
+
+    Delegates the find/union sweep to the native C++ extension
+    (``native/fastdecomp.cpp``) when available — the host-side bottleneck
+    for million-constraint systems — with an identical-result Python
+    fallback."""
     deps: List[List[int]] = [c.dependent_variable_ids() for c in constraints]
-    var_root, cons_root = _component_roots_python(deps, n_vars)
+    roots = _component_roots_native(deps, n_vars)
+    if roots is None:
+        roots = _component_roots_python(deps, n_vars)
+    var_root, cons_root = roots
 
     groups: Dict[int, Component] = {}
     for cid, root in enumerate(cons_root):
@@ -85,7 +93,7 @@ def connected_components(
 
 
 def _component_roots_python(deps, n_vars):
-    """(var_root, cons_root) — Python union-find."""
+    """(var_root, cons_root) — Python union-find (fallback)."""
     parent = list(range(n_vars))
 
     def find(a: int) -> int:
@@ -105,6 +113,25 @@ def _component_roots_python(deps, n_vars):
     var_root = [find(v) if seen[v] else -1 for v in range(n_vars)]
     cons_root = [find(ids[0]) if ids else -1 for ids in deps]
     return var_root, cons_root
+
+
+def _component_roots_native(deps, n_vars):
+    """(var_root, cons_root) via the C++ extension, or None."""
+    from ..native import load_fastdecomp
+
+    mod = load_fastdecomp()
+    if mod is None:
+        return None
+    offsets = np.zeros(len(deps) + 1, dtype=np.int32)
+    for i, ids in enumerate(deps):
+        offsets[i + 1] = offsets[i] + len(ids)
+    flat = np.fromiter(
+        (v for ids in deps for v in ids), dtype=np.int32, count=int(offsets[-1])
+    )
+    vr_bytes, cr_bytes = mod.components(n_vars, offsets, flat)
+    var_root = np.frombuffer(vr_bytes, dtype=np.int32)
+    cons_root = np.frombuffer(cr_bytes, dtype=np.int32)
+    return var_root.tolist(), cons_root.tolist()
 
 
 def _component_signature(

@@ -269,8 +269,8 @@ def test_cuda_instance_columns_match_planner():
 
 
 def test_port_imports_no_jax():
-    """``import ezpz_tpu_torch`` (and every module of the port) loads
-    neither jax nor the JAX package."""
+    """``import ezpz_tpu_torch`` (and every module of the port, the native
+    extensions loaded) loads neither jax nor the JAX package."""
     code = (
         "import sys\n"
         "import ezpz_tpu_torch, ezpz_tpu_torch.batch, ezpz_tpu_torch.textual\n"
@@ -280,6 +280,8 @@ def test_port_imports_no_jax():
         "import ezpz_tpu_torch.ops.coarse_fleet\n"
         "import ezpz_tpu_torch.api, ezpz_tpu_torch.dof, ezpz_tpu_torch.outcomes\n"
         "import ezpz_tpu_torch.cli, ezpz_tpu_torch.viz, ezpz_tpu_torch.utils.warnings\n"
+        "import ezpz_tpu_torch.serve, ezpz_tpu_torch.embed, ezpz_tpu_torch.native\n"
+        "ezpz_tpu_torch.native.load_fastparse(), ezpz_tpu_torch.native.load_fastdecomp()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"
         "assert not bad, bad\n"
