@@ -7,9 +7,10 @@ Phases (any failure exits non-zero before the result line):
 
 1. the card (``nvidia-smi`` name and power limit) and the CUDA runtime;
    no GPU, no run;
-2. build the fleet kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``)
-   with nvcc, one compiler per source, and print each instantiation's
-   registers, stack frame and spills, and its resident threads per SM;
+2. build the kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``,
+   ``csrc/banded_spd.cu``) with nvcc, one compiler per source, and print
+   each instantiation's registers, stack frame and spills, and the fleet
+   kernels' resident threads per SM;
 3. the fused kernel against its plain PyTorch version on the card, on every
    bucket of every corpus fixture plus ``rect_chain(8)`` (37 topologies)
    and three big ones the kernel gate admits: ``chain(40)`` (80
@@ -93,17 +94,40 @@ Phases (any failure exits non-zero before the result line):
    host's parse time; ``serve.benchmark`` (sequential requests);
    (c) the HTTP front end (``serve.make_handler``): routes, the
    X-Precision header, ``/healthz``, 404 and the 400 error body;
-   (d) the embed probes on the card against the CPU, timed.
+   (d) the embed probes on the card against the CPU, timed;
+8. the coupled path, ``bench.py``'s second headline (``phase8``): the
+   600-line ``coupled`` chain (2,400 variables, not block-diagonal) through
+   ``textual.Problem`` and ``parallel.BlockSchurSolver(n_parts=120,
+   boundary_solver="banded", precision="mixed")``, 1024 copies (guesses
+   moved by seeded N(0, 1e-3)); structure P, m, kb, n_b, bw = 120, 16, 12,
+   952, 11. Counts from zero: the banded kernel (``csrc/banded_spd.cu``)
+   launched; every lane converged and satisfied, the f64 residual
+   recomputed by ``residual_and_flags`` <= 1e-8. Held against the same
+   solve with the plain banded version on the card (flags and iterations
+   equal, x within 1e-6), a second identical run (bit for bit), the dense
+   and CG boundaries at 64 copies (flags equal, iterations equal for
+   dense) and ``precision="f64"`` on the CPU at 4 copies (flags equal);
+   across boundaries and precisions x within 600 x 1e-8 (one residual
+   tolerance per link of the chain, ``COUPLED_X_TOL``). Timed: solves/s
+   (5 reps, fresh inputs), the ms per LM trip by part (Jacobian pass,
+   interior solves, boundary solve, rest of the step, loop and sync),
+   ``solve``'s batch-1 latency, launches per
+   ``solve_batch`` under ``torch.profiler``, peak memory, and the kernel
+   alone on the first boundary solve's band against its plain version and
+   the dense ``cholesky_ex`` + ``cholesky_solve`` of the same matrix, in
+   f32 and f64.
 
 The line before the last is a JSON record per kernel: launches in its main
 path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
-main-path solve for the kernel and for its plain version (CUDA events,
-median of 5), and the least time the card could take (``bound_ms``: the
+main-path solve (the banded kernel: per call) for the kernel and for its
+plain version (CUDA events, median of 5; the banded plain version once,
+host clock), and the least time the card could take (``bound_ms``: the
 larger of the bytes each kernel must move over 3.35 TB/s and a lower
 bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
 counted from this run's inputs and iteration counts). No single PyTorch
-call computes an LM fleet solve, so ``library_ms`` is null. The last line
-is ``{"ok": true, "device": {...}}``.
+call computes an LM fleet solve, so the fleet kernels' ``library_ms`` is
+null; the banded kernel's is the dense Cholesky factorization and solve
+of the same matrix. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -159,9 +183,12 @@ def ptxas_summary(log_path):
     for line in open(log_path):
         m = re.search(r"Compiling entry function '.*?(fused|coarse)_(small|big)_kernel"
                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
+        b = re.search(r"Compiling entry function '.*?banded_spd_kernelI([fd])Li(\d+)E", line)
         if m:
             shape = f"<{m.group(3)},{m.group(4)}>" if m.group(3) else ""
             name = f"{m.group(1)}_{m.group(2)}_kernel{shape}"
+        elif b:
+            name = f"banded_spd_kernel<{'float' if b.group(1) == 'f' else 'double'},{b.group(2)}>"
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
@@ -795,21 +822,19 @@ def phase6b(dev, card):
     return card_us
 
 
-def profile_solve(cs, dev):
-    """One warm ``solve_with_config`` on the card under ``torch.profiler``:
-    kernel launches, device-to-host copies, the kernels' summed device time
-    and the wall time (profiler overhead included), and the device's idle
-    share of that wall time."""
+def profiled(fn):
+    """``fn()`` once on the card under ``torch.profiler``: its kernel
+    launches, device-to-host copies, the kernels' summed device time and
+    the wall time (profiler overhead included), and the device's idle share
+    of that wall time, as one line."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ezpz_tpu_torch.config import Config
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cs.solve_with_config(Config(), device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = copies = 0
@@ -825,6 +850,13 @@ def profile_solve(cs, dev):
     return (f"{launches} kernel launches, {copies} cudaMemcpyAsync, device busy "
             f"{device_us / 1e3!r} ms of {wall * 1e3!r} ms wall (profiled), idle share "
             f"{1 - device_us / 1e6 / wall!r}")
+
+
+def profile_solve(cs, dev):
+    """One warm ``solve_with_config`` on the card under ``torch.profiler``."""
+    from ezpz_tpu_torch.config import Config
+
+    return profiled(lambda: cs.solve_with_config(Config(), device=dev))
 
 
 def phase6c(dev):
@@ -1333,6 +1365,298 @@ def phase7_sequential(card, api_us):
         raise SystemExit("chip_smoke: serve.benchmark did not launch once per request")
 
 
+# Phase 8: the coupled path at bench.py's operating point.
+COUPLED_LINES = 600
+COUPLED_COPIES = 1024
+COUPLED_PARTS = 120
+COUPLED_SIGMA = 1e-3
+COUPLED_SIDE_COPIES = 64
+COUPLED_CPU_COPIES = 4
+# (P, m, kb, n_b, bw) of the chain at COUPLED_PARTS parts.
+COUPLED_STRUCTURE = (120, 16, 12, 952, 11)
+# Two solves that each stop at a residual <= 1e-8 can put the chain's
+# far end up to one residual per link apart (the equal-length links pass
+# each length error on): x is compared across boundary solvers and
+# precisions to COUPLED_LINES * 1e-8. (Measured on the CPU at 4 copies:
+# dense against banded 2.7e-7, f64 against mixed 1.2e-6.)
+COUPLED_X_TOL = COUPLED_LINES * 1e-8
+# Dense library factorizations of the band's (B, n_b, n_b) matrix: timed
+# once when one call takes longer than this (it is only a yardstick).
+LIBRARY_ONCE_MS = 1000.0
+
+
+def coupled_solver(cons, n_vars, device, boundary="banded", precision="mixed"):
+    from ezpz_tpu_torch.parallel import BlockSchurSolver
+
+    return BlockSchurSolver(cons, n_vars, n_parts=COUPLED_PARTS,
+                            boundary_solver=boundary, precision=precision,
+                            device=device)
+
+
+def same_flags(label, res, sat, ref_res, ref_sat, iterations=True, x_tol=X_TOL):
+    """Converged, satisfied and degenerate equal lane for lane (and
+    iterations, when asked), x within ``x_tol``; returns max |x - x_ref|."""
+    import torch
+
+    ok = (torch.equal(res.converged.cpu(), ref_res.converged.cpu())
+          and torch.equal(sat.cpu(), ref_sat.cpu())
+          and torch.equal(res.deg.cpu(), ref_res.deg.cpu()))
+    if iterations:
+        ok = ok and torch.equal(res.iterations.cpu(), ref_res.iterations.cpu())
+    err = float((res.x.cpu() - ref_res.x.cpu()).abs().max())
+    print(f"{label}: flags equal={ok} max|dx|={err!r}", flush=True)
+    if not ok or err > x_tol:
+        raise SystemExit(f"chip_smoke: {label} differs")
+    return err
+
+
+def banded_bound_ms(B, n, bw, itemsize):
+    """The least time for one banded solve of B lanes: the band, the
+    right-hand side and x (and the fail flags) moved once, against the
+    factor's and both substitutions' operations per row (bw^2 + 3 bw + 2,
+    then 2 bw + 2 twice) over the f32 or f64 rate."""
+    nbytes = B * n * (bw + 3) * itemsize + B
+    ops = B * n * (bw * bw + 7 * bw + 6)
+    rate = F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def events_ms(fn):
+    """Median ms of ``fn()`` between two CUDA events over REPS calls, after
+    one warm call."""
+    fn()
+    return timed(around(lambda _k: fn()))[1][0]
+
+
+def phase8_split(solver, x0s, card):
+    """One ``solve_batch`` with CUDA events around each part of every LM
+    step: the partitioned Jacobian pass, the interior solves, the boundary
+    solve, the rest of the step (contractions, assembly, scatter) and the
+    rest of the trip (trial residual, accept/reject, the host's live-lane
+    check). Returns ms per trip by part and the trip count."""
+    import torch
+
+    from ezpz_tpu_torch.parallel import block_schur
+
+    marks = {"jacobian": [], "interior": [], "boundary": [], "step": []}
+
+    def timed_call(key, fn):
+        def wrapper(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            marks[key].append(ev)
+            return out
+        return wrapper
+
+    saved = (block_schur.spd_solve_multi_batched, block_schur.banded_spd_solve)
+    block_schur.spd_solve_multi_batched = timed_call("interior", saved[0])
+    block_schur.banded_spd_solve = timed_call("boundary", saved[1])
+    solver._partition_normal_eq = timed_call("jacobian", solver._partition_normal_eq)
+    solver._schur_step = timed_call("step", solver._schur_step)
+    try:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        solver.solve_batch(x0s)
+        ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        block_schur.spd_solve_multi_batched, block_schur.banded_spd_solve = saved
+        del solver._partition_normal_eq, solver._schur_step
+    total = ev[0].elapsed_time(ev[1])
+    summed = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    trips = len(marks["step"])
+    split = {
+        "jacobian": summed["jacobian"] / trips,
+        "interior": summed["interior"] / trips,
+        "boundary": summed["boundary"] / trips,
+        "rest of step": (summed["step"] - summed["jacobian"] - summed["interior"]
+                         - summed["boundary"]) / trips,
+        "loop and sync": (total - summed["step"]) / trips,
+    }
+    print(f"phase8 split per LM trip ({trips} trips, {total!r} ms for the solve, CUDA "
+          f"events): " + ", ".join(f"{k} {v!r} ms" for k, v in split.items())
+          + f"; card: {card}", flush=True)
+    return split, trips
+
+
+def phase8_kernel(band, rhs, card):
+    """The banded kernel alone at the operating point's band (the first
+    boundary solve of a main-path run): against its plain version (once:
+    a chain of ~n (bw^2 + 3 bw) launches) and against the PyTorch call
+    that computes the same function on the dense matrix of the same band
+    (``cholesky_ex`` + ``cholesky_solve``, the dense boundary's), in f32
+    and f64. Returns the f32 record of the kernels line."""
+    import torch
+
+    from ezpz_tpu_torch.ops import banded
+
+    B, n, bwp1 = band.shape
+    bw = bwp1 - 1
+    rec = None
+    for dtype in (torch.float32, torch.float64):
+        Ab, b = band.to(dtype), rhs.to(dtype)
+        x, fail = banded.banded_spd_solve(Ab, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xr, failr = banded.banded_spd_reference(Ab, b)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bits = torch.equal(x, xr) and torch.equal(fail, failr)
+        err = float((x - xr).abs().max())
+        if not torch.equal(fail, failr) or err > X_TOL or bool(fail.any()):
+            raise SystemExit(f"chip_smoke: banded kernel differs from its plain version "
+                             f"({dtype}: max|dx|={err!r}, fails {int(fail.sum())})")
+        kms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
+        dense = torch.zeros((B, n, n), dtype=dtype, device=band.device)
+        rows = torch.arange(n, device=band.device)[:, None]
+        cols = rows - bw + torch.arange(bwp1, device=band.device)[None, :]
+        keep = (cols >= 0).expand(n, bwp1)
+        r_idx, c_idx = rows.expand(n, bwp1)[keep], cols[keep]
+        dense[:, r_idx, c_idx] = Ab[:, keep]
+        dense[:, c_idx, r_idx] = Ab[:, keep]
+
+        def library():
+            L, _info = torch.linalg.cholesky_ex(dense)
+            return torch.cholesky_solve(b[..., None], L)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lx = library()
+        torch.cuda.synchronize()
+        once = (time.perf_counter() - t0) * 1e3
+        lib_ms = once if once > LIBRARY_ONCE_MS else events_ms(library)
+        lerr = float((lx[..., 0] - x).abs().max() / x.abs().max())
+        del dense, lx
+        bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
+        print(f"phase8 banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
+              f"(CUDA events, median of {REPS}, wrapper's transposes included), plain "
+              f"version {plain_ms!r} ms (once, host clock), bit-equal {bits}; dense "
+              f"cholesky_ex + cholesky_solve {lib_ms!r} ms ({'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}; "
+              f"relative difference {lerr!r}); bound {bound!r} ms ({bound_by}, "
+              f"{100 * bound / kms:.2f}% of the kernel's time); card: {card}", flush=True)
+        if dtype == torch.float32:
+            rec = dict(max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib_ms)
+    return rec
+
+
+def phase8(dev, card):
+    """The coupled path (``bench.py``'s second headline) on the card."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.ops import banded, banded_spd
+    from ezpz_tpu_torch.parallel import block_schur
+
+    t_start = time.perf_counter()
+    cons, x0 = coupled_bench.build_problem(COUPLED_LINES)
+    n = len(x0)
+    rng = np.random.default_rng(8)
+    noise = rng.normal(0.0, COUPLED_SIGMA, (COUPLED_COPIES + REPS, n))
+    x0s = torch.as_tensor(x0 + noise[:COUPLED_COPIES], device=dev)
+    solver = coupled_solver(cons, n, dev)
+    print(f"phase8 structure: {n} variables, {len(cons)} constraints, P={solver.P} "
+          f"m={solver.m} kb={solver.kb} n_b={solver.n_b} bw={solver.band_bw} "
+          f"boundary={solver.boundary_solver}", flush=True)
+    if (solver.P, solver.m, solver.kb, solver.n_b, solver.band_bw) != COUPLED_STRUCTURE:
+        raise SystemExit("chip_smoke: the coupled chain's structure is not bench.py's")
+    solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
+
+    # The main-path run: counts from zero, gate on its answers.
+    banded_spd.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    res, sat = solver.solve_batch(x0s)
+    torch.cuda.synchronize()
+    launches = banded_spd.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    r, _deg = solver.system.residual_and_flags(res.x)
+    rmax = float(r.abs().max())
+    conv, sat_all = bool(res.converged.all()), bool(sat.all())
+    print(f"phase8 gate: {COUPLED_COPIES} copies, converged={conv} satisfied={sat_all} "
+          f"f64_residual_max={rmax!r} iterations {int(res.iterations.min())}-"
+          f"{int(res.iterations.max())}; launches: banded_spd={launches}; peak device "
+          f"memory {peak!r} bytes", flush=True)
+    if not (conv and sat_all and rmax <= 1e-8) or launches == 0:
+        raise SystemExit("chip_smoke: phase8 main path failed its gate or never "
+                         "launched the banded kernel")
+
+    # A second identical run (capturing the first boundary solve's inputs):
+    # equal bit for bit.
+    captured = []
+
+    def capture(band, rhs):
+        if not captured:
+            captured.append((band.clone(), rhs.clone()))
+        return banded.banded_spd_solve(band, rhs)
+
+    block_schur.banded_spd_solve = capture
+    try:
+        again, again_sat = solver.solve_batch(x0s)
+    finally:
+        block_schur.banded_spd_solve = banded.banded_spd_solve
+    same = (torch.equal(again.x, res.x) and torch.equal(again.iterations, res.iterations)
+            and torch.equal(again_sat, sat))
+    print(f"phase8 second run bit-equal: {same}", flush=True)
+    if not same:
+        raise SystemExit("chip_smoke: phase8 is not deterministic from run to run")
+
+    # The same solve with the plain banded version on the card.
+    block_schur.banded_spd_solve = banded.banded_spd_reference
+    try:
+        plain, plain_sat = solver.solve_batch(x0s)
+    finally:
+        block_schur.banded_spd_solve = banded.banded_spd_solve
+    same_flags("phase8 plain banded version on the card", plain, plain_sat, res, sat)
+
+    # Dense and CG boundaries at COUPLED_SIDE_COPIES lanes; f64 on the CPU.
+    k = COUPLED_SIDE_COPIES
+    head = res._replace(**{f: getattr(res, f)[:k] for f in res._fields})
+    for boundary in ("dense", "cg"):
+        other, other_sat = coupled_solver(cons, n, dev, boundary).solve_batch(x0s[:k])
+        same_flags(f"phase8 {boundary} boundary x{k}", other, other_sat, head, sat[:k],
+                   iterations=boundary == "dense", x_tol=COUPLED_X_TOL)
+    k = COUPLED_CPU_COPIES
+    cpu_res, cpu_sat = coupled_solver(cons, n, "cpu", precision="f64").solve_batch(
+        x0s[:k].cpu())
+    head = res._replace(**{f: getattr(res, f)[:k] for f in res._fields})
+    same_flags(f"phase8 f64 on the CPU x{k}", cpu_res, cpu_sat, head, sat[:k],
+               iterations=False, x_tol=COUPLED_X_TOL)
+
+    # Timing: solves/s on fresh inputs, the split, batch-1 latency,
+    # launches, the kernel alone.
+    walls = []
+    for rep in range(REPS):
+        xs = x0s + torch.as_tensor(noise[COUPLED_COPIES + rep], device=dev) * 1e-3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve_batch(xs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[REPS // 2]
+    print(f"phase8 coupled path: {COUPLED_COPIES / wall!r} solves/s of the 2400-var coupled "
+          f"chain, median {wall * 1e3!r} ms per {COUPLED_COPIES}-copy solve_batch, reps "
+          f"{[round(w * 1e3, 3) for w in walls]} ms; card: {card}", flush=True)
+    phase8_split(solver, x0s, card)
+    lat = []
+    for rep in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(x0 + noise[rep])
+        lat.append(time.perf_counter() - t0)
+    print(f"phase8 solve batch-1 latency: median {sorted(lat)[REPS // 2] * 1e3!r} ms, reps "
+          f"{[round(t * 1e3, 3) for t in lat]} ms; card: {card}", flush=True)
+    print(f"phase8 profiled solve_batch: {profiled(lambda: solver.solve_batch(x0s))}",
+          flush=True)
+    rec = phase8_kernel(*captured[0], card)
+    print(f"phase8 ok: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(launches=launches, **rec)
+
+
 def kernel_ms(solvers, entry, plain=False):
     """Median ms per main-path solve of one kernel (or its plain version)
     alone: CUDA events around INNER solves of every bucket, on inputs made
@@ -1389,6 +1713,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     t0 = time.perf_counter()
     so = _build.build()
@@ -1407,20 +1732,24 @@ def main() -> int:
     coarse = phase5(dev, card)
     full, api_us = phase6(dev, card)
     phase7(dev, card, full, api_us)
+    band = phase8(dev, card)
     kernels = []
-    for name, rec, line in (("fused_fleet", fused, 898), ("coarse_fleet", coarse, 598)):
+    for name, rec, replaces in (
+            ("fused_fleet", fused, "ezpz_tpu/ops/pallas_fleet.py:898"),
+            ("coarse_fleet", coarse, "ezpz_tpu/ops/pallas_fleet.py:598"),
+            ("banded_spd", band, "ezpz_tpu/ops/banded.py:37")):
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"ezpz_tpu_torch/csrc/{name}.cu",
-            "replaces": f"ezpz_tpu/ops/pallas_fleet.py:{line}",
+            "replaces": replaces,
             "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"],
-            "library_ms": None,
+            "library_ms": rec.get("library_ms"),
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -49,6 +49,11 @@ class CompiledSystem:
     Every evaluation method takes ``x`` of shape ``(..., n_vars)`` and an
     optional ``pars`` override: a tuple of ``(..., n_k, np_k)`` tensors
     aligned with ``blocks``. Without it the compile-time parameters apply.
+
+    ``part_size`` > 0 declares ``x`` to be ``n_vars // part_size`` parts of
+    ``part_size`` variables that no instance spans (the per-part systems of
+    ``parallel.block_schur``): ``normal_equations`` then returns JtJ as its
+    diagonal blocks, ``(B, n_parts, part_size, part_size)``.
     """
 
     n_vars: int
@@ -56,6 +61,7 @@ class CompiledSystem:
     n_rows: int
     blocks: Tuple[KindBlock, ...]
     dtype: torch.dtype = torch.float64
+    part_size: int = 0
 
     def _pars(self, pars, i, like):
         if pars is None:
@@ -97,7 +103,8 @@ class CompiledSystem:
     def normal_equations(self, x: torch.Tensor, pars=None,
                          rhs: Optional[torch.Tensor] = None):
         """``(r (B, n_rows), JtJ (B, n, n), Jtr (B, n), degenerate flags
-        (B, n_constraints))`` at ``x`` (B, n_vars).
+        (B, n_constraints))`` at ``x`` (B, n_vars) (JtJ in diagonal blocks
+        when ``part_size`` is set).
 
         Jacobian columns come by forward mode per kernel (``torch.func.jvp``
         with one-hot tangents, one per instance variable). JtJ and Jtr are
@@ -183,33 +190,37 @@ class CompiledSystem:
         return J
 
     def _assemble(self, jj, jr, B, like):
-        """Sum per-instance products into JtJ (B, n, n) and Jtr (B, n).
+        """Sum per-instance products into JtJ (B, n, n), or its diagonal
+        blocks (B, n / s, s, s) for ``part_size`` s, and Jtr (B, n).
         ``jj`` holds, per block, one (B, nb) tensor for each (k, l) pair of
         instance variables; ``jr`` one for each k."""
         n = self.n_vars
         dev = like.device
         out = []
         for vals, (entries, gather, size) in zip((jj, jr), self._assembly):
-            # Columns in the plan's numbering: [block, (k[, l]), instance],
-            # then one zero column that pads the gather lists.
-            cols = torch.cat([*vals, torch.zeros_like(like[:, :1])], dim=1)
-            flat = torch.zeros((B, size), dtype=self.dtype, device=dev)
-            if len(entries):
-                g = torch.as_tensor(gather, device=dev)
-                acc = cols[:, g[:, 0]]
-                for c in range(1, g.shape[1]):
-                    acc = acc + cols[:, g[:, c]]
-                flat[:, torch.as_tensor(entries, device=dev)] = acc
-            out.append(flat)
+            # Columns in the plan's numbering: [block, (k[, l]), instance].
+            cols = (torch.cat(vals, dim=1) if vals
+                    else torch.zeros((B, 0), dtype=self.dtype, device=dev))
+            out.append(gather_sum(cols, torch.as_tensor(entries, device=dev),
+                                  torch.as_tensor(gather, device=dev), size))
+        if self.part_size:
+            s = self.part_size
+            return out[0].reshape(B, n // s, s, s), out[1]
         return out[0].reshape(B, n, n), out[1]
 
     @cached_property
     def _assembly(self):
-        """Host plan of ``_assemble``, built once: for JtJ (flattened n*n)
-        and Jtr, the entries that receive contributions, and per entry the
-        contribution columns to add, in the JAX package's scatter order
-        (block, instance, then k, l), padded with the zero column."""
+        """Host plan of ``_assemble``, built once: for JtJ (flattened n*n,
+        or its flattened diagonal blocks) and Jtr, the entries that receive
+        contributions, and per entry the contribution columns to add, in the
+        JAX package's scatter order (block, instance, then k, l), padded
+        with the zero column."""
         n = self.n_vars
+        s = self.part_size or max(n, 1)
+
+        def jj_key(i, j):
+            return (i // s) * s * s + (i % s) * s + j % s
+
         jj_lists, jr_lists = {}, {}
         off_jj = off_jr = 0
         for b in self.blocks:
@@ -219,12 +230,13 @@ class CompiledSystem:
                 for k in range(nv):
                     jr_lists.setdefault(ids[k], []).append(off_jr + k * nb + inst)
                     for l in range(nv):
-                        jj_lists.setdefault(ids[k] * n + ids[l], []).append(
+                        jj_lists.setdefault(jj_key(ids[k], ids[l]), []).append(
                             off_jj + (k * nv + l) * nb + inst)
             off_jj += nb * nv * nv
             off_jr += nb * nv
         plan = []
-        for lists, zero_col, size in ((jj_lists, off_jj, n * n), (jr_lists, off_jr, n)):
+        for lists, zero_col, size in ((jj_lists, off_jj, (n // s) * s * s),
+                                      (jr_lists, off_jr, n)):
             entries = sorted(lists)
             width = max((len(v) for v in lists.values()), default=0)
             gather = np.full((len(entries), width), zero_col, dtype=np.int64)
@@ -318,6 +330,22 @@ class CompiledSystem:
             for b in self.blocks
         )
         return replace(self, blocks=blocks, dtype=dtype)
+
+
+def gather_sum(vals: torch.Tensor, entries: torch.Tensor, gather: torch.Tensor,
+               size: int) -> torch.Tensor:
+    """A scatter-add as fixed gathers and adds, the same on every device:
+    ``out[:, entries[e]]`` (B, size) is the sum of ``vals[:, gather[e, c]]``
+    (B, n_in) over c in order, a column index of ``n_in`` standing for zero
+    (it pads the shorter lists); other outputs are zero."""
+    out = torch.zeros((vals.shape[0], size), dtype=vals.dtype, device=vals.device)
+    if len(entries):
+        cols = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
+        acc = cols[:, gather[:, 0]]
+        for c in range(1, gather.shape[1]):
+            acc = acc + cols[:, gather[:, c]]
+        out[:, entries] = acc
+    return out
 
 
 def _dot(a, b):

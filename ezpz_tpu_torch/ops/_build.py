@@ -23,7 +23,7 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_fleet.cu", "coarse_fleet.cu")
+SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ezpz_tpu_torch"
 
 # IEEE division and sqrt and no FMA contraction keep the kernels' f32
@@ -39,6 +39,9 @@ NVCC_FLAGS = (
 # whose lane state lives in registers, smallest first. Mirrors SMALL_SHAPES
 # in csrc/fleet_common.cuh.
 SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
+
+# Register capacities of the banded SPD kernel (CAPS in csrc/banded_spd.cu).
+BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
 
 # Scratch of one big-topology launch; a larger batch is launched in chunks.
 MAX_SCRATCH_BYTES = 1 << 30
@@ -79,7 +82,7 @@ def _nvcc() -> str:
     fallback = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(fallback):
         return fallback
-    raise RuntimeError("nvcc not found: the fleet CUDA kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def library_path() -> Path:
@@ -166,9 +169,25 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_small_shape.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.ezpz_cuda_error_string.restype = ctypes.c_char_p
     lib.ezpz_cuda_error_string.argtypes = [i]
+    lib.ezpz_banded_spd.restype = i
+    lib.ezpz_banded_spd.argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
+                                    i, i, i, i, p]     # B, n, bw, m, stream
+    lib.ezpz_banded_capacity.restype = i
+    lib.ezpz_banded_capacity.argtypes = [i]
     if compiled_shapes(lib) != SMALL_SHAPES:
         raise RuntimeError(f"library shapes {compiled_shapes(lib)} != {SMALL_SHAPES}")
+    if banded_capacities(lib) != BANDED_CAPACITIES:
+        raise RuntimeError(f"library band capacities {banded_capacities(lib)} != "
+                           f"{BANDED_CAPACITIES}")
     return lib
+
+
+def banded_capacities(lib) -> tuple:
+    """The register capacities of the banded kernel the library reports."""
+    out = []
+    while (cap := lib.ezpz_banded_capacity(len(out))) >= 0:
+        out.append(cap)
+    return tuple(out)
 
 
 def compiled_shapes(lib) -> tuple:

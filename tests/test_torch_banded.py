@@ -1,0 +1,207 @@
+"""The port's banded SPD solve (``ezpz_tpu_torch.ops.banded``) against the
+JAX package's ``ops/banded.py``, on the CPU.
+
+Inputs come from numpy with a fixed seed: per lane a random symmetric band
+made diagonally dominant (SPD), plus lanes that must fail: a negative
+diagonal entry (the pivot goes negative) and, for bw >= 1, an exactly
+singular pivot (a [[1, 1], [1, 1]] block: ``diag2`` is 0.0 exactly, as in
+``tests/test_banded_tier.py``).
+
+What must hold, and why:
+
+* ``fail`` equal lane for lane, and failed lanes' ``x`` exactly zero;
+* x within 1e-12 (f64) and 1e-5 (f32) relative: both packages run the
+  same row recurrences in the same order; only the JAX package's
+  ``jnp.sum`` of a row's squares and ``einsum`` of the forward step may
+  be reassociated by XLA;
+* ``dense_to_band`` equal exactly; ``plan_band`` equal to JAX's
+  ``(perm, bw)`` (the same RCM code); ``make_banded_spd`` equal to the
+  dense solve within 1e-10.
+
+The CUDA kernel that a card's tensors reach is held against the plain
+version in ``tests/test_torch_cuda.py``.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from ezpz_tpu.constraints import Constraint as JConstraint
+from ezpz_tpu.datatypes import DatumPoint as JPoint
+from ezpz_tpu.models.compiled import compile_system as j_compile_system
+from ezpz_tpu.ops import banded as JBd
+from ezpz_tpu_torch.models.compiled import from_reference
+from ezpz_tpu_torch.ops import banded as TBd
+from ezpz_tpu_torch.ops import banded_spd
+from ezpz_tpu_torch.ops.linalg import spd_solve
+
+sys.path.insert(0, os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "benches"))
+from midsize_bench import rect_chain, rect_grid  # noqa: E402
+
+B = 8
+
+
+def _bands(n, bw, seed, singular=True):
+    """(Ab (B, n, bw+1) lower bands, dense A (B, n, n), spd (B,) bool):
+    lane 1 has a negative diagonal entry mid-matrix and, for bw >= 1 and
+    n >= 3, lane 2 an exactly singular pivot at row 2."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((B, n, n))
+    for k in range(B):
+        for i in range(n):
+            for j in range(max(0, i - bw), i):
+                A[k, i, j] = A[k, j, i] = rng.uniform(-1.0, 1.0)
+        A[k] += np.eye(n) * (2.0 * bw + 1.0 + rng.uniform(0.0, 1.0, n))
+    spd = np.ones(B, dtype=bool)
+    A[1, n // 2, n // 2] = -1.0
+    spd[1] = False
+    if singular and bw >= 1 and n >= 3:
+        A[2] = np.eye(n)
+        A[2, 1, 2] = A[2, 2, 1] = 1.0
+        spd[2] = False
+    Ab = np.stack([np.asarray(JBd.dense_to_band(jnp.asarray(a), bw)) for a in A])
+    return Ab, A, spd
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("bw", [1, 3, 11])
+@pytest.mark.parametrize("n", [5, 64])
+def test_banded_spd_solve_matches_jax(n, bw, dtype):
+    Ab, _A, spd = _bands(n, bw, seed=100 * bw + n + (dtype == "float32"))
+    b = np.random.default_rng(n).uniform(-1.0, 1.0, (B, n))
+    jx, jfail = jax.jit(jax.vmap(JBd.banded_spd_solve))(jnp.asarray(Ab, dtype),
+                                                        jnp.asarray(b, dtype))
+    tdt = getattr(torch, dtype)
+    tx, tfail = TBd.banded_spd_solve(torch.as_tensor(Ab, dtype=tdt),
+                                     torch.as_tensor(b, dtype=tdt))
+    tx, tfail, jx = tx.numpy(), tfail.numpy(), np.asarray(jx)
+    np.testing.assert_array_equal(tfail, np.asarray(jfail))
+    np.testing.assert_array_equal(tfail, ~spd)
+    assert (tx[tfail] == 0.0).all()
+    rtol = 1e-12 if dtype == "float64" else 1e-5
+    np.testing.assert_allclose(tx[spd], jx[spd], rtol=rtol,
+                               atol=rtol * np.abs(jx[spd]).max())
+
+
+def test_banded_multi_rhs_matches_jax():
+    """Several right-hand sides (B, n, m) solve against one factor."""
+    Ab, _A, spd = _bands(40, 3, seed=7)
+    b = np.random.default_rng(8).uniform(-1.0, 1.0, (B, 40, 3))
+    jx, jfail = jax.jit(jax.vmap(JBd.banded_spd_solve))(jnp.asarray(Ab), jnp.asarray(b))
+    tx, tfail = TBd.banded_spd_solve(torch.as_tensor(Ab), torch.as_tensor(b))
+    np.testing.assert_array_equal(tfail.numpy(), np.asarray(jfail))
+    np.testing.assert_allclose(tx.numpy()[spd], np.asarray(jx)[spd], rtol=1e-12, atol=1e-12)
+    one, _ = TBd.banded_spd_solve(torch.as_tensor(Ab), torch.as_tensor(b[..., 1]))
+    assert torch.equal(one, tx[..., 1])
+
+
+def test_banded_solution_solves_the_dense_system():
+    Ab, A, spd = _bands(30, 4, seed=3, singular=False)
+    b = np.random.default_rng(4).normal(size=(B, 30))
+    x, fail = TBd.banded_spd_solve(torch.as_tensor(Ab), torch.as_tensor(b))
+    np.testing.assert_array_equal(fail.numpy(), ~spd)
+    for k in np.flatnonzero(spd):
+        np.testing.assert_allclose(x[k].numpy(), np.linalg.solve(A[k], b[k]), atol=1e-10)
+
+
+def test_banded_exactly_singular_pivot_flags_failure():
+    """The JAX package's boundary cases (``tests/test_banded_tier.py``):
+    a 2x2 [[1,1],[1,1]] and a 4x4 whose third pivot cancels exactly."""
+    A4 = np.eye(4)
+    A4[1, 2] = A4[2, 1] = 1.0
+    for A, b in ((np.ones((2, 2)), [1.0, 2.0]), (A4, np.ones(4))):
+        Ab = JBd.dense_to_band(jnp.asarray(A), 1)
+        jx, jfail = JBd.banded_spd_solve(Ab, jnp.asarray(b))
+        tx, tfail = TBd.banded_spd_solve(torch.as_tensor(np.array(Ab))[None],
+                                         torch.as_tensor(np.asarray(b))[None])
+        assert bool(jfail) and bool(tfail[0])
+        assert (tx == 0.0).all() and np.allclose(np.asarray(jx), 0.0)
+
+
+@pytest.mark.parametrize("bw", [0, 2, 5])
+def test_dense_to_band_matches_jax(bw):
+    A = np.random.default_rng(bw).normal(size=(3, 9, 9))
+    want = np.stack([np.asarray(JBd.dense_to_band(jnp.asarray(a), bw)) for a in A])
+    got = TBd.dense_to_band(torch.as_tensor(A), bw).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _expander(n_vars=200, n_cons=250):
+    rng = np.random.default_rng(0)
+    cons = []
+    for _ in range(n_cons):
+        a, b = rng.choice(n_vars // 2, size=2, replace=False)
+        cons.append(JConstraint.Distance(JPoint(int(2 * a), int(2 * a + 1)),
+                                         JPoint(int(2 * b), int(2 * b + 1)), 1.0))
+    return cons, np.zeros(n_vars)
+
+
+def _port_system(jsys):
+    return from_reference({
+        "n_vars": jsys.n_vars, "n_constraints": jsys.n_constraints,
+        "n_rows": jsys.n_rows,
+        "blocks": [(b.spec.name, b.idx, b.par, b.weight, b.cid) for b in jsys.blocks],
+    })
+
+
+@pytest.mark.parametrize("topology", ["rect_chain(24)", "rect_grid(5,5)", "expander"])
+def test_plan_band_matches_jax(topology):
+    cons, x0 = {"rect_chain(24)": lambda: rect_chain(24),
+                "rect_grid(5,5)": lambda: rect_grid(5, 5),
+                "expander": _expander}[topology]()
+    jsys = j_compile_system(cons, n_vars=len(x0))
+    want = JBd.plan_band(jsys)
+    got = TBd.plan_band(_port_system(jsys))
+    if want is None:
+        assert got is None
+        return
+    assert got[1] == want[1]
+    if want[0] is None:
+        assert got[0] is None
+    else:
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+def test_make_banded_spd_matches_dense_solve():
+    """The planned band route (RCM permutation, band extraction, banded
+    solve, permutation back) answers as the dense solve does."""
+    cons, x0 = rect_chain(24)
+    jsys = j_compile_system(cons, n_vars=len(x0))
+    perm, bw = JBd.plan_band(jsys)
+    n = len(x0)
+    pattern = np.zeros((n, n), dtype=bool)
+    for b in jsys.blocks:
+        for ids in b.idx:
+            pattern[np.ix_(ids, ids)] = True
+    rng = np.random.default_rng(5)
+    A = np.where(pattern, rng.uniform(-1.0, 1.0, (3, n, n)), 0.0)
+    A = 0.5 * (A + A.transpose(0, 2, 1)) + np.eye(n) * n
+    b = rng.normal(size=(3, n))
+    x, fail = TBd.make_banded_spd(n, bw, perm)(torch.as_tensor(A), torch.as_tensor(b))
+    want, wfail = spd_solve(torch.as_tensor(A), torch.as_tensor(b))
+    assert not fail.any() and not wfail.any()
+    np.testing.assert_allclose(x.numpy(), want.numpy(), atol=1e-10)
+
+
+def test_cpu_band_takes_the_plain_version(monkeypatch):
+    """A CPU band never reaches the CUDA wrapper; the plain version answers."""
+    def no_kernel(*_a, **_k):
+        raise AssertionError("the CUDA kernel must not run for CPU input")
+
+    monkeypatch.setattr(banded_spd, "banded_spd_cuda", no_kernel)
+    Ab, _A, _spd = _bands(6, 2, seed=1)
+    x, fail = TBd.banded_spd_solve(torch.as_tensor(Ab), torch.ones((B, 6), dtype=torch.float64))
+    want = TBd.banded_spd_reference(torch.as_tensor(Ab), torch.ones((B, 6), dtype=torch.float64))
+    assert torch.equal(x, want[0]) and torch.equal(fail, want[1])
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_spd.banded_spd_cuda(torch.zeros((1, 3, 2)), torch.zeros((1, 3)))

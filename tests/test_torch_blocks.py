@@ -4,7 +4,8 @@
   (the kernels' plain versions here; the JAX kernels in interpret mode) on
   the 12-block fleet of ``tests/test_block_api.py`` with ``q.x`` pinned
   (so the blocks are fully constrained) and one degenerate block (not in
-  the mixed mode, where its f32 trajectory follows XLA's rounding):
+  the mixed mode, where JAX's unrolled evaluator takes it elsewhere; see
+  ``test_mixed_degenerate_block_follows_the_compiled_evaluator``):
   converged, satisfied and degenerate flags equal; iterations equal in
   f64 and through the fused kernel, within 1 on the batched mixed paths
   (XLA's fused f32 rounding, ``tests/test_torch_solver.py``); coordinates
@@ -62,9 +63,12 @@ def _constraints(ez, pinned=False, **kw):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_block_solver_matches_jax(mode):
-    # The degenerate block's f32 trajectory on the batched mixed path
-    # follows XLA's fused rounding (21 trips unconverged in the port, 17
-    # converged in JAX): that mode runs the fleet without it.
+    # The degenerate block's mixed trajectory depends on the evaluator:
+    # JAX's BatchSolver evaluates a topology of at most 24 instances with
+    # its unrolled evaluator, the port with the compiled one (21 trips
+    # unconverged, as JAX's own compiled-system loop; JAX's BlockSolver 17
+    # converged). That mode runs the fleet without it; the difference is
+    # pinned in test_mixed_degenerate_block_follows_the_compiled_evaluator.
     degenerate_at = None if mode == "mixed" else 3
     tc, x0 = _constraints(T, pinned=True, degenerate_at=degenerate_at)
     jc, _ = _constraints(J, pinned=True, degenerate_at=degenerate_at)
@@ -88,6 +92,53 @@ def test_block_solver_matches_jax(mode):
     np.testing.assert_allclose(t.x[keep], np.asarray(j.x)[keep], rtol=0,
                                atol=1e-9 if mode == "f64" else 1e-6)
     assert isinstance(t.x, np.ndarray) and t.x.dtype == np.float64
+
+
+def test_mixed_degenerate_block_follows_the_compiled_evaluator():
+    """The one place where the port's batched mixed path and JAX's
+    ``BlockSolver`` part (ROADMAP.md section 3, item 5), pinned with its
+    cause. The degenerate block (8 variables, 5 instances) runs 21 trips
+    unconverged in the port and 17 converged in JAX's ``BlockSolver``.
+    JAX's own ``solve_lm_mixed`` on the compiled system, jitted, runs the
+    port's 21 trips unconverged; only JAX's ``BatchSolver`` reaches 17,
+    because it evaluates topologies of at most 24 instances through its
+    unrolled evaluator (``_maybe_unroll``, ezpz_tpu/batch.py:80-86), whose
+    f32 coarse phase ends at another point (its unsatisfiable mirror
+    residual stays at 6.0 either way). That evaluator was chosen by TPU
+    measurements and is not ported (ROADMAP.md queue 1 item 7)."""
+    from ezpz_tpu import solver as JS
+    from ezpz_tpu.batch import _maybe_unroll
+    from ezpz_tpu_torch import solver as TS
+
+    jc, x0 = _constraints(J, pinned=True, degenerate_at=3)
+    tc, _ = _constraints(T, pinned=True, degenerate_at=3)
+    jb = [b for b in JB.build_buckets(jc, len(x0)) if b.system.n_vars == 8][0]
+    tb = [b for b in TB.build_buckets(tc, len(x0)) if b.system.n_vars == 8][0]
+    np.testing.assert_array_equal(jb.var_index, tb.var_index)
+    xb = x0[jb.var_index]
+    c = J.Config()
+    args = (c.max_iterations, c.residual_tolerance, c.step_tolerance, c.initial_lambda)
+
+    def jax_mixed(s64):
+        s32 = s64.astype(jnp.float32)
+        return jax.jit(jax.vmap(lambda x: JS.solve_lm_mixed(s64, s32, x, *args)))(
+            jnp.asarray(xb))
+
+    compiled = jax_mixed(jb.system)
+    port = TS.solve_lm_mixed(tb.system, tb.system.astype(torch.float32),
+                             torch.as_tensor(xb), *args)
+    assert int(compiled.iterations[0]) == int(port.iterations[0]) == 21
+    assert not bool(compiled.converged[0]) and not bool(port.converged[0])
+    ev64 = _maybe_unroll(jb.system)
+    assert type(ev64).__name__ == "UnrolledSystem"
+    s32 = _maybe_unroll(jb.system.astype(jnp.float32))
+    unrolled = jax.jit(jax.vmap(lambda x: JS.solve_lm_mixed(ev64, s32, x, *args)))(
+        jnp.asarray(xb))
+    assert int(unrolled.iterations[0]) == 17 and bool(unrolled.converged[0])
+    t = TB.BlockSolver(tc, len(x0), precision="mixed", device="cpu").solve(x0)
+    j = JB.BlockSolver(jc, len(x0), precision="mixed").solve(x0)
+    assert (t.iterations, t.converged) == (21, False)
+    assert (j.iterations, j.converged) == (17, True)
 
 
 def test_block_solver_kernel_modes_apply_only_in_mixed():

@@ -281,6 +281,8 @@ def test_port_imports_no_jax():
         "import ezpz_tpu_torch.api, ezpz_tpu_torch.dof, ezpz_tpu_torch.outcomes\n"
         "import ezpz_tpu_torch.cli, ezpz_tpu_torch.viz, ezpz_tpu_torch.utils.warnings\n"
         "import ezpz_tpu_torch.serve, ezpz_tpu_torch.embed, ezpz_tpu_torch.native\n"
+        "import ezpz_tpu_torch.parallel, ezpz_tpu_torch.ops.banded\n"
+        "import ezpz_tpu_torch.ops.banded_spd, ezpz_tpu_torch.benches.coupled_bench\n"
         "ezpz_tpu_torch.native.load_fastparse(), ezpz_tpu_torch.native.load_fastdecomp()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"

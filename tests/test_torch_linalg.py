@@ -96,3 +96,66 @@ def test_spd_solve_nan_input_fails_every_tier():
 def test_empty_system():
     x, fail = TL.spd_solve(torch.zeros((3, 0, 0)), torch.zeros((3, 0)))
     assert x.shape == (3, 0) and not bool(fail.any())
+
+
+MULTI_SIZES = [1, 4, 16, 24, 25, 40]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n", MULTI_SIZES)
+def test_spd_solve_multi_matches_reference(n, dtype):
+    """``spd_solve_multi`` (one factorization, r right-hand sides) against
+    JAX's, with the tolerances above; and ``spd_solve`` on each column."""
+    A, b, spd = _matrices(n, seed=20 * n + (dtype == "float32"),
+                          nan_lane=2 if n > 1 else None)
+    R = np.random.default_rng(n).uniform(-1.0, 1.0, (B, n, 3))
+    R[:, :, 0] = b
+    run = jax.vmap(JL.spd_solve_multi)
+    if n > TL.UNROLL_MAX_N:
+        run = jax.jit(run)
+    jx, jfail = run(jnp.asarray(A, dtype), jnp.asarray(R, dtype))
+    tdt = getattr(torch, dtype)
+    tA = torch.as_tensor(A, dtype=tdt)
+    tx, tfail = TL.spd_solve_multi(tA, torch.as_tensor(R, dtype=tdt))
+    np.testing.assert_array_equal(tfail.numpy(), np.asarray(jfail))
+    np.testing.assert_array_equal(tfail.numpy(), ~spd)
+    assert (tx[tfail] == 0.0).all()
+    if dtype == "float64":
+        rtol = 1e-12 if n <= TL.UNROLL_MAX_N else 1e-9
+    else:
+        rtol = 1e-5 if n <= TL.UNROLL_MAX_N else 1e-4
+    ok = ~tfail.numpy()
+    jx = np.asarray(jx)
+    np.testing.assert_allclose(tx.numpy()[ok], jx[ok], rtol=rtol,
+                               atol=rtol * np.abs(jx[ok]).max())
+    col, cfail = TL.spd_solve(tA, torch.as_tensor(b, dtype=tdt))
+    assert torch.equal(cfail, tfail)
+    torch.testing.assert_close(col, tx[..., 0], rtol=rtol, atol=rtol)
+
+
+@pytest.mark.parametrize("n", [16, 40])
+def test_batched_solves_match_reference(n):
+    """The ``_batched`` entry points over two leading axes (parts x lanes,
+    as the partitioned-Schur interiors call them) against JAX's vmapped
+    twice. Above 24 JAX takes its TPU column-sweep tier and the port the
+    library factorization: the n > 24 tolerance."""
+    A, b, spd = _matrices(n, seed=30 + n)
+    R = np.random.default_rng(n).uniform(-1.0, 1.0, (B, n, 4))
+    A2, b2, R2 = A.reshape(4, 4, n, n), b.reshape(4, 4, n), R.reshape(4, 4, n, 4)
+    rtol = 1e-12 if n <= TL.UNROLL_MAX_N else 1e-9
+    for jfn, tfn, rhs in ((JL.spd_solve_batched, TL.spd_solve_batched, b2),
+                          (JL.spd_solve_multi_batched, TL.spd_solve_multi_batched, R2)):
+        jx, jfail = jax.jit(jax.vmap(jax.vmap(jfn)))(jnp.asarray(A2), jnp.asarray(rhs))
+        tx, tfail = tfn(torch.as_tensor(A2), torch.as_tensor(rhs))
+        assert tx.shape == rhs.shape and tfail.shape == (4, 4)
+        np.testing.assert_array_equal(tfail.numpy().reshape(-1), ~spd)
+        np.testing.assert_array_equal(tfail.numpy(), np.asarray(jfail))
+        ok = ~tfail.numpy()
+        jx = np.asarray(jx)
+        np.testing.assert_allclose(tx.numpy()[ok], jx[ok], rtol=rtol,
+                                   atol=rtol * np.abs(jx[ok]).max())
+
+
+def test_empty_multi_system():
+    x, fail = TL.spd_solve_multi(torch.zeros((3, 2, 0, 0)), torch.zeros((3, 2, 0, 5)))
+    assert x.shape == (3, 2, 0, 5) and fail.shape == (3, 2) and not bool(fail.any())
