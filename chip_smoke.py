@@ -115,7 +115,28 @@ Phases (any failure exits non-zero before the result line):
    ``solve_batch`` under ``torch.profiler``, peak memory, and the kernel
    alone on the first boundary solve's band against its plain version and
    the dense ``cholesky_ex`` + ``cholesky_solve`` of the same matrix, in
-   f32 and f64.
+   f32 and f64;
+9. the single-device remainder (``phase9``):
+   (a) ``parallel.FleetSolver`` over every visible card on the main path
+   (the massive fixture x 8192, both buckets, mixed + fused): counts from
+   zero, one fused launch per bucket per card, the bench gate, every shard
+   bit-equal to ``BatchSolver`` on the same lanes and card, timed against
+   it (CUDA events and host clock, 5 reps); and ``precision="f64"`` on the
+   ``<2,2>`` bucket's first 8192 lanes, bit-equal to ``BatchSolver``;
+   (b) ``solver.solve_lm_cg`` in f64 on 1024 copies of the 200-line
+   ``coupled`` chain (800 variables, guesses moved by seeded N(0, 1e-3)):
+   every lane converged, max|r| <= 1e-8 recomputed in f64; flags and
+   iterations equal to dense ``solve_lm`` on the card, x within 200 x 1e-8
+   (``CG_X_TOL``); LM trips, CG trips, host syncs, peak memory against the
+   dense solve's, ms per solve of both (5 reps, fresh inputs), one profiled
+   solve; and one copy of the 600-line chain, which must stop unconverged
+   at the 35-iteration budget as the JAX package's does;
+   (c) ``solver.solve_gauss_newton`` on the same 1024 copies: every lane
+   converged in f64; flags and iterations equal to the CPU's on 4 copies;
+   (d) the five ``residual_viz`` fields on the card, pixel-equal to the
+   CPU's (or scoring >= 0.99 by ``compare_images``);
+   (e) the three examples (``ezpz_tpu_torch.examples``) on the card, their
+   lines checked.
 
 The line before the last is a JSON record per kernel: launches in its main
 path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
@@ -1657,6 +1678,330 @@ def phase8(dev, card):
     return dict(launches=launches, **rec)
 
 
+# Phase 9: the single-device remainder.
+CG_LINES = 200
+CG_COPIES = 1024
+CG_SIGMA = 1e-3
+CG_CPU_COPIES = 4
+CG_UNCONVERGED_LINES = 600
+# LM settings of the matrix-free and Gauss-Newton solves (Config's).
+LM_CFG = (35, 1e-8, 1e-12, 1e-9)
+# Dense and matrix-free LM both stop at a residual <= 1e-8 on a chain of
+# CG_LINES equal-length links: their x may sit one residual per link apart
+# (phase 8's COUPLED_X_TOL argument).
+CG_X_TOL = CG_LINES * 1e-8
+F64_BUCKET_LANES = 8192
+VIZ_ARGS = {
+    "points_coincident": (3.0, 2.0),
+    "distance": (0.0, 0.0, 3.0),
+    "point_line_distance": ((0.0, 0.0), (2.0, 3.0), 1.0),
+    "vertical": (1.0, 0.0),
+    "horizontal": (0.0, 1.0),
+}
+VIZ_VIEW = (-6, 6, -6, 6, 240, 240)
+EXAMPLE_LINES = {
+    "basic": ["|PQ| = 4.000000000"],
+    "parser": ["p = (0.000000, 0.000000)"],
+    "scale": ["fleet: 4096 sketches, all converged = True",
+              "converged = True, all line lengths = 4.000000"],
+}
+
+
+def fleet_solver(system, precision="mixed"):
+    from ezpz_tpu_torch.parallel import FleetSolver
+
+    fused = precision == "mixed"
+    return FleetSolver(system, batch_params=True, precision=precision,
+                       pallas_fused=fused, pallas_trips=3, refine_trips=2)
+
+
+def same_batch(label, out, ref):
+    """Every field of two ``BatchResult``s equal bit for bit."""
+    import torch
+
+    ok = all(torch.equal(getattr(out, f), getattr(ref, f))
+             for f in ("x", "iterations", "converged", "satisfied", "degenerate"))
+    print(f"{label}: bit-equal={ok}", flush=True)
+    if not ok:
+        raise SystemExit(f"chip_smoke: {label} differs")
+
+
+def phase9a(dev, card):
+    """``FleetSolver`` (every visible card) on the main path: the massive
+    fixture x COPIES, both buckets, mixed + fused; then f64 on the <2,2>
+    bucket's first F64_BUCKET_LANES lanes."""
+    import torch
+
+    from ezpz_tpu_torch.ops import fused_fleet
+
+    n_cards = torch.cuda.device_count()
+    fleets = massive(dev, fleet_solver)
+    print(f"phase9a FleetSolver over {n_cards} visible card(s): "
+          f"{[str(d) for d in fleets[0][0].devices]}", flush=True)
+
+    def dispatch(k):
+        return [f.solve(xb + k * 1e-9, pb) for f, xb, pb in fleets]
+
+    # The main-path run (offset as in phase 4): counts from zero.
+    warm = 2 * REPS + 1
+    fused_fleet.LAUNCHES = 0
+    outs = dispatch(warm)
+    torch.cuda.synchronize()
+    launches = fused_fleet.LAUNCHES
+    print(f"phase9a launches: fused_fleet={launches} for {len(fleets)} buckets on "
+          f"{n_cards} card(s)", flush=True)
+    if launches != len(fleets) * n_cards:
+        raise SystemExit("chip_smoke: FleetSolver did not launch the fused kernel once "
+                         "per bucket per card")
+    gate("phase9a", fleets, outs)
+    # Each shard against a BatchSolver on the same lanes and card.
+    locals_ = [(fused_solver(f.system), xb, pb) for f, xb, pb in fleets]
+    for (f, xb, pb), (local, _x, _p), o in zip(fleets, locals_, outs):
+        xk, start = xb + warm * 1e-9, 0
+        for d, n in zip(f.devices, f._shard_sizes(xb.shape[0])):
+            sl = slice(start, start + n)
+            local.device = d
+            ref = local.solve(xk[sl], tuple(p[sl] for p in pb))
+            same_batch(f"phase9a n_vars={f.system.n_vars} shard of {n} lanes on {d} "
+                       f"against BatchSolver",
+                       type(o)(**{k: getattr(o, k)[sl] for k in vars(o)}), ref)
+            start += n
+        local.device = dev
+    del outs
+
+    fw, (fms,), fwalls = timed(around(dispatch))
+    lw, (lms,), lwalls = timed(around(
+        lambda k: [s.solve(xb + k * 1e-9, pb) for s, xb, pb in locals_]))
+    print(f"phase9a fleet: median {fw * 1e3!r} ms host clock, {fms!r} ms CUDA events per "
+          f"main-path solve (reps {[round(w * 1e3, 3) for w in fwalls]} ms); BatchSolver: "
+          f"{lw * 1e3!r} ms, {lms!r} ms (reps {[round(w * 1e3, 3) for w in lwalls]} ms); "
+          f"card: {card}", flush=True)
+
+    # f64 on the <2,2> bucket.
+    two = next((f, xb, pb) for f, xb, pb in fleets if f.system.n_vars == 2)
+    xb, pb = two[1][:F64_BUCKET_LANES], tuple(p[:F64_BUCKET_LANES] for p in two[2])
+    from ezpz_tpu_torch.batch import BatchSolver
+    from ezpz_tpu_torch.config import Config
+
+    f64 = fleet_solver(two[0].system, "f64")
+    out = f64.solve(xb, pb)
+    ref = BatchSolver(two[0].system, Config(), batch_params=True, precision="f64").solve(xb, pb)
+    same_batch(f"phase9a f64 <2,2> x{F64_BUCKET_LANES} against BatchSolver", out, ref)
+    gate("phase9a f64 <2,2>", [(f64, xb, pb)], [out])
+
+
+def cg_problem(lines):
+    """(compiled f64 system, x0) of the ``lines``-line coupled chain."""
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.models.compiled import compile_system
+
+    cons, x0 = coupled_bench.build_problem(lines)
+    return compile_system(cons, len(x0)), x0
+
+
+def counted_cg_solve(system, x0s):
+    """``solve_lm_cg`` with its LM trips (Jacobian passes), CG calls and CG
+    trips (matvecs less one per call, for r0) counted."""
+    from ezpz_tpu_torch import solver as TS
+    from ezpz_tpu_torch.models import compiled as TC
+
+    counts = dict(lm_trips=0, cg_calls=0, matvecs=0)
+    saved = (TC.CompiledSystem.jacobian_factors, TC.CompiledSystem.jtj_matvec, TS._cg)
+
+    def factors(self, *a, **k):
+        counts["lm_trips"] += 1
+        return saved[0](self, *a, **k)
+
+    def matvec(self, *a, **k):
+        counts["matvecs"] += 1
+        return saved[1](self, *a, **k)
+
+    def cg(*a, **k):
+        counts["cg_calls"] += 1
+        return saved[2](*a, **k)
+
+    TC.CompiledSystem.jacobian_factors, TC.CompiledSystem.jtj_matvec, TS._cg = (
+        factors, matvec, cg)
+    try:
+        res = TS.solve_lm_cg(system, x0s, *LM_CFG)
+    finally:
+        TC.CompiledSystem.jacobian_factors, TC.CompiledSystem.jtj_matvec, TS._cg = saved
+    counts["cg_trips"] = counts["matvecs"] - counts["cg_calls"]
+    return res, counts
+
+
+def phase9b(dev, card):
+    """The matrix-free LM on CG_COPIES copies of the CG_LINES-line chain,
+    against dense ``solve_lm``; one copy of the 600-line chain stops
+    unconverged as the JAX package's does. Returns the chain's inputs for
+    phase 9c."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch import solver as TS
+
+    system, x0 = cg_problem(CG_LINES)
+    n = len(x0)
+    noise = np.random.default_rng(9).normal(0.0, CG_SIGMA, (CG_COPIES + REPS, n))
+    x0s = torch.as_tensor(x0 + noise[:CG_COPIES], device=dev)
+    TS.solve_lm_cg(system, x0s[:2], *LM_CFG)  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, counts = counted_cg_solve(system, x0s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cg_peak = torch.cuda.max_memory_allocated()
+    r, _deg = system.residual_and_flags(res.x)
+    rmax = float(r.abs().max())
+    conv = bool(res.converged.all())
+    # One live check per trip and one that ends each loop.
+    syncs = counts["lm_trips"] + 1 + counts["cg_trips"] + counts["cg_calls"]
+    print(f"phase9b solve_lm_cg f64: {CG_COPIES} copies of the {CG_LINES}-line chain "
+          f"({n} variables): converged={conv} f64_residual_max={rmax!r} iterations "
+          f"{int(res.iterations.min())}-{int(res.iterations.max())}; {wall * 1e3!r} ms "
+          f"(host clock, first run); LM trips {counts['lm_trips']}, CG calls "
+          f"{counts['cg_calls']}, CG trips {counts['cg_trips']}, host syncs of the loops "
+          f"{syncs}; peak device memory "
+          f"{cg_peak!r} bytes; card: {card}", flush=True)
+    if not (conv and rmax <= 1e-8):
+        raise SystemExit("chip_smoke: phase9b matrix-free LM failed its gate")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dense = TS.solve_lm(system, x0s, *LM_CFG)
+    torch.cuda.synchronize()
+    dense_first = time.perf_counter() - t0
+    dense_peak = torch.cuda.max_memory_allocated()
+    ok = (torch.equal(dense.converged, res.converged)
+          and torch.equal(dense.iterations, res.iterations))
+    dx = float((dense.x - res.x).abs().max())
+    print(f"phase9b dense solve_lm: flags and iterations equal={ok} max|dx|={dx!r} "
+          f"(tolerance {CG_X_TOL!r}); {dense_first * 1e3!r} ms (host clock, first run); "
+          f"peak device memory {dense_peak!r} bytes, {dense_peak / cg_peak!r}x the "
+          f"matrix-free solve's", flush=True)
+    if not ok or dx > CG_X_TOL:
+        raise SystemExit("chip_smoke: phase9b matrix-free LM differs from dense LM")
+    del dense
+
+    walls = {}
+    for label, fn in (("solve_lm_cg", TS.solve_lm_cg), ("solve_lm", TS.solve_lm)):
+        reps = []
+        for rep in range(REPS):
+            xs = x0s + torch.as_tensor(noise[CG_COPIES + rep], device=dev) * 1e-3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(system, xs, *LM_CFG)
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        walls[label] = sorted(reps)[REPS // 2]
+        print(f"phase9b {label}: median {walls[label] * 1e3!r} ms per {CG_COPIES}-copy "
+              f"solve (host clock, fresh inputs, reps "
+              f"{[round(w * 1e3, 3) for w in reps]} ms); card: {card}", flush=True)
+    print(f"phase9b profiled solve_lm_cg: "
+          f"{profiled(lambda: TS.solve_lm_cg(system, x0s, *LM_CFG))}", flush=True)
+
+    big, bx0 = cg_problem(CG_UNCONVERGED_LINES)
+    t0 = time.perf_counter()
+    one, big_counts = counted_cg_solve(big, torch.as_tensor(bx0, device=dev)[None])
+    torch.cuda.synchronize()
+    big_wall = time.perf_counter() - t0
+    br = float(one.residual.abs().max())
+    print(f"phase9b solve_lm_cg on the {CG_UNCONVERGED_LINES}-line chain, one copy: "
+          f"converged={bool(one.converged[0])} iterations={int(one.iterations[0])} "
+          f"max|r|={br!r}; LM trips {big_counts['lm_trips']}, CG trips "
+          f"{big_counts['cg_trips']}; {big_wall * 1e3!r} ms; card: {card}", flush=True)
+    if bool(one.converged[0]) or int(one.iterations[0]) != LM_CFG[0]:
+        raise SystemExit("chip_smoke: the 600-line chain did not stop unconverged at the "
+                         "LM budget as the JAX package's does")
+    return system, x0s
+
+
+def phase9c(system, x0s, card):
+    """Gauss-Newton on the same copies: every lane converged (f64 residual
+    <= 1e-8); flags and iterations equal to the CPU's on CG_CPU_COPIES."""
+    import torch
+
+    from ezpz_tpu_torch import solver as TS
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gn = TS.solve_gauss_newton(system, x0s, *LM_CFG)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    r, _deg = system.residual_and_flags(gn.x)
+    rmax = float(r.abs().max())
+    k = CG_CPU_COPIES
+    cpu = TS.solve_gauss_newton(system, x0s[:k].cpu(), *LM_CFG)
+    ok = (torch.equal(gn.converged[:k].cpu(), cpu.converged)
+          and torch.equal(gn.iterations[:k].cpu(), cpu.iterations))
+    dx = float((gn.x[:k].cpu() - cpu.x).abs().max())
+    print(f"phase9c solve_gauss_newton f64: {x0s.shape[0]} copies converged="
+          f"{bool(gn.converged.all())} f64_residual_max={rmax!r} iterations "
+          f"{int(gn.iterations.min())}-{int(gn.iterations.max())}, {wall * 1e3!r} ms "
+          f"(host clock); against the CPU on {k} copies: flags and iterations "
+          f"equal={ok} max|dx|={dx!r}; card: {card}", flush=True)
+    if not (bool(gn.converged.all()) and rmax <= 1e-8 and ok):
+        raise SystemExit("chip_smoke: phase9c Gauss-Newton failed")
+
+
+def phase9d(dev, card):
+    """The five residual fields on the card against the CPU's."""
+    from ezpz_tpu_torch import residual_viz as rv
+
+    for name, args in VIZ_ARGS.items():
+        render = getattr(rv, f"render_{name}")
+        t0 = time.perf_counter()
+        img = render(*args, *VIZ_VIEW, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = render(*args, *VIZ_VIEW, device="cpu")
+        equal = bool((img == ref).all())
+        score = rv.compare_images(img, ref)
+        print(f"phase9d {name}: pixel-equal={equal} score={score!r}, {ms!r} ms on the "
+              f"card (host clock, first call); card: {card}", flush=True)
+        if not (equal or score >= 0.99):
+            raise SystemExit(f"chip_smoke: residual field {name} differs from the CPU's")
+
+
+def phase9e(card):
+    """The three examples on the card, their lines checked."""
+    import contextlib
+    import io
+
+    from ezpz_tpu_torch.examples import basic, parser, scale
+
+    for name, module in (("basic", basic), ("parser", parser), ("scale", scale)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            module.main([])
+        secs = time.perf_counter() - t0
+        out = buf.getvalue()
+        missing = [line for line in EXAMPLE_LINES[name] if line not in out]
+        print(f"phase9e example {name} on the card ({secs!r} s): "
+              + " | ".join(out.strip().splitlines()), flush=True)
+        if missing:
+            raise SystemExit(f"chip_smoke: example {name} did not print {missing}")
+
+
+def phase9(dev, card):
+    t_start = time.perf_counter()
+    times = []
+    phase9a(dev, card)
+    times.append(time.perf_counter() - t_start)
+    system, x0s = phase9b(dev, card)
+    times.append(time.perf_counter() - t_start - sum(times))
+    phase9c(system, x0s, card)
+    times.append(time.perf_counter() - t_start - sum(times))
+    phase9d(dev, card)
+    times.append(time.perf_counter() - t_start - sum(times))
+    phase9e(card)
+    times.append(time.perf_counter() - t_start - sum(times))
+    print(f"phase9 ok: {sum(times):.1f} s (a, b, c, d, e: "
+          f"{[round(t, 1) for t in times]} s)", flush=True)
+
+
 def kernel_ms(solvers, entry, plain=False):
     """Median ms per main-path solve of one kernel (or its plain version)
     alone: CUDA events around INNER solves of every bucket, on inputs made
@@ -1733,6 +2078,7 @@ def main() -> int:
     full, api_us = phase6(dev, card)
     phase7(dev, card, full, api_us)
     band = phase8(dev, card)
+    phase9(dev, card)
     kernels = []
     for name, rec, replaces in (
             ("fused_fleet", fused, "ezpz_tpu/ops/pallas_fleet.py:898"),

@@ -15,8 +15,15 @@ Under it: constraint lowering (``constraints``), per-type compilation
 (``models.blocks``: ``BlockProgram``, ``BlockSolver``), the batched
 Levenberg-Marquardt loop (``solver``, ``ops.linalg``), freedom analysis
 (``dof``), and ``batch.BatchSolver`` over the loop and over the coarse and
-fused fleet kernels (``ops.coarse_fleet``, ``ops.fused_fleet``). The
-package imports ``torch`` and never ``jax``.
+fused fleet kernels (``ops.coarse_fleet``, ``ops.fused_fleet``);
+``parallel`` (``BlockSchurSolver`` for coupled systems, ``FleetSolver``
+over several devices), ``residual_viz`` and ``examples``. The package
+imports ``torch`` and never ``jax``.
+
+``EZPZ_TPU_DEBUG_NANS=1`` (``EZPZ_TPU_DEBUG_INFS=1``), read at import,
+makes the first torch operation that produces a NaN (an Inf) raise
+``FloatingPointError`` naming it (``utils.debug``). Off by default: the
+solver uses NaN on a non-SPD factorization as its failure signal.
 """
 
 from .config import Config
@@ -46,6 +53,9 @@ from .utils.ids import Id, IdGenerator
 from .utils.warnings import Warning, WarningContent
 from .outcomes import SolveOutcome, FailureOutcome, FreedomAnalysis, SolveOutcomeFreedomAnalysis
 from .api import solve, solve_analysis
+from .utils import debug as _debug
+
+_debug.arm_from_env()
 
 __all__ = [
     "Config",

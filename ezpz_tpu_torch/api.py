@@ -111,10 +111,12 @@ def _get_system_and_solver(constraints, weights, n_vars: int,
             f"precision must be 'f64' or 'mixed', got {precision!r}")
     dev = resolve_device(device)
     thresh = _decompose_min()
+    dbg = os.environ.get("EZPZ_TPU_DBG_JAC", "")
     key = (
         topology_key(constraints, n_vars),
         tuple(weights),
         max_iterations,
+        dbg,  # make_solver reads it
         thresh,
         precision,
         str(dev),
@@ -125,7 +127,9 @@ def _get_system_and_solver(constraints, weights, n_vars: int,
         return hit
 
     system = solver = None
-    if thresh > 0 and len(constraints) >= thresh:
+    # dbg-jac prints the whole system's dense Jacobian per trip: it stays
+    # on the monolithic path, where that Jacobian exists.
+    if thresh > 0 and dbg in ("", "0") and len(constraints) >= thresh:
         if len(connected_components(constraints, n_vars)) >= thresh:
             program = BlockProgram(
                 constraints, n_vars, list(weights), max_iterations,

@@ -6,8 +6,9 @@ are grouped by kernel type into ``(n_type, nvars)`` index arrays and
 package builds them), and evaluated on torch tensors with a leading batch
 axis: one call evaluates a whole fleet of sketches sharing the topology.
 
-``jacobian_factors`` and ``jtj_matvec``, which serve only the matrix-free
-``solve_lm_cg``, are not ported yet (ROADMAP.md queue 1 item 10).
+``jacobian_factors`` and ``jtj_matvec`` serve the matrix-free
+``solver.solve_lm_cg``: the per-block weighted Jacobians, and JtJ times a
+vector without the dense (n, n) JtJ.
 """
 
 from __future__ import annotations
@@ -168,6 +169,65 @@ class CompiledSystem:
             wjac.append([dres[d] * w for d in range(spec.dim)])
         return res, wjac, deg, w
 
+    def jacobian_factors(self, x: torch.Tensor, pars=None):
+        """Per-block weighted Jacobians and the residual at ``x`` (B,
+        n_vars), for matrix-free JtJ products (systems whose dense (n, n)
+        JtJ does not fit). Returns ``(r (B, n_rows), jtr (B, n_vars),
+        wjacs, deg (B, n_constraints))``, where ``wjacs[i]`` is block
+        ``i``'s weighted Jacobian (B, nb, dim, nv). ``jtr`` is summed by
+        the fixed gathers of ``normal_equations``, in the JAX package's
+        scatter order."""
+        x = x.to(self.dtype)
+        B = x.shape[0]
+        dev = x.device
+        parts, jr, wjacs = [], [], []
+        deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
+        for i, b in enumerate(self.blocks):
+            spec = b.spec
+            res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
+            wres = [res[d] * w for d in range(spec.dim)]
+            jr.extend(_dot(ka, wres) for ka in wjac)
+            wjacs.append(torch.stack([torch.stack(ka, dim=-1) for ka in wjac], dim=-1))
+            parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
+            if spec.can_degenerate:
+                cid = torch.as_tensor(b.cid, dtype=torch.long, device=dev)
+                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+        if parts:
+            r = torch.cat(parts, dim=-1)
+        else:
+            r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
+        return r, self._plan_sum(self._assembly[1], jr, B, x), wjacs, deg_acc > 0
+
+    def jtj_matvec(self, wjacs, v: torch.Tensor) -> torch.Tensor:
+        """``JtJ v`` (B, n_vars) for ``v`` (B, n_vars) without forming JtJ:
+        per block, gather ``v``, contract with the rows (``J v``) and back
+        (``J^T (J v)``), then sum per variable by the fixed gathers of
+        ``jacobian_factors`` (O(nnz), deterministic on any device)."""
+        B = v.shape[0]
+        idxs, entries, gather, size = self._matvec_tables(v.device)
+        cols = []
+        for idx, wjac in zip(idxs, wjacs):
+            vg = v[:, idx]  # (B, nb, nv)
+            t = torch.sum(wjac * vg[:, :, None, :], dim=-1)  # (B, nb, dim)
+            back = torch.sum(wjac * t[..., None], dim=-2)  # (B, nb, nv)
+            cols.append(back.transpose(1, 2).reshape(B, -1))  # [k, instance]
+        vals = (torch.cat(cols, dim=1) if cols
+                else torch.zeros((B, 0), dtype=self.dtype, device=v.device))
+        return gather_sum(vals, entries, gather, size)
+
+    def _matvec_tables(self, dev):
+        """The blocks' gather indices and the Jtr plan on ``dev``, copied
+        there once per device: ``jtj_matvec`` runs once per CG trip."""
+        cache = self.__dict__.setdefault("_matvec_tables_by_device", {})
+        if dev not in cache:
+            entries, gather, size = self._assembly[1]
+            cache[dev] = (
+                tuple(torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+                      for b in self.blocks),
+                torch.as_tensor(entries, device=dev),
+                torch.as_tensor(gather, device=dev), size)
+        return cache[dev]
+
     def jacobian_dense(self, x: torch.Tensor, pars=None) -> torch.Tensor:
         """Weighted dense Jacobians ``(B, n_rows, n_vars)`` at ``x`` (B,
         n_vars), rows in compiled row order (the freedom analysis's input).
@@ -195,18 +255,23 @@ class CompiledSystem:
         ``jj`` holds, per block, one (B, nb) tensor for each (k, l) pair of
         instance variables; ``jr`` one for each k."""
         n = self.n_vars
-        dev = like.device
-        out = []
-        for vals, (entries, gather, size) in zip((jj, jr), self._assembly):
-            # Columns in the plan's numbering: [block, (k[, l]), instance].
-            cols = (torch.cat(vals, dim=1) if vals
-                    else torch.zeros((B, 0), dtype=self.dtype, device=dev))
-            out.append(gather_sum(cols, torch.as_tensor(entries, device=dev),
-                                  torch.as_tensor(gather, device=dev), size))
+        jtj = self._plan_sum(self._assembly[0], jj, B, like)
+        jtr = self._plan_sum(self._assembly[1], jr, B, like)
         if self.part_size:
             s = self.part_size
-            return out[0].reshape(B, n // s, s, s), out[1]
-        return out[0].reshape(B, n, n), out[1]
+            return jtj.reshape(B, n // s, s, s), jtr
+        return jtj.reshape(B, n, n), jtr
+
+    def _plan_sum(self, plan, vals, B, like):
+        """One of ``_assembly``'s scatter-adds as fixed gathers: ``vals``
+        holds (B, ...) tensors whose concatenated columns are in the plan's
+        numbering ([block, (k[, l]), instance])."""
+        entries, gather, size = plan
+        dev = like.device
+        cols = (torch.cat(vals, dim=1) if vals
+                else torch.zeros((B, 0), dtype=self.dtype, device=dev))
+        return gather_sum(cols, torch.as_tensor(entries, device=dev),
+                          torch.as_tensor(gather, device=dev), size)
 
     @cached_property
     def _assembly(self):

@@ -21,11 +21,11 @@ import ctypes
 
 import torch
 
+from ..utils import debug
 from . import _build
 
 # Kernel launches made by ``banded_spd_cuda`` in this process.
 LAUNCHES = 0
-
 
 
 def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
@@ -67,4 +67,5 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
         raise RuntimeError(f"banded_spd kernel launch failed: cudaError {err} "
                            f"({_build.error_string(lib, err)})")
     LAUNCHES += 1
+    debug.check_outputs("the banded_spd kernel", x_t)
     return x_t.permute(2, 0, 1).reshape(b.shape), fail

@@ -17,6 +17,7 @@ from typing import Sequence
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
+from ..utils import debug
 from . import _build
 from .fleet_plan import (INST_CID, INST_DIM, INST_IDS, INST_KIND, INST_NV,
                          INST_POFF, INST_PK, KERNEL_MAX_FILL,
@@ -60,8 +61,9 @@ def launch(entry: str, plan: FleetPlan, x0: torch.Tensor, par: torch.Tensor,
     launch, else the big-topology kernel over chunks of the batch with
     lane-interleaved scratch (``_build.big_slots``). ``scalars``: the trip
     counts and tolerances after the tables; ``outs``: the output tensors,
-    batch first. Raises ``RuntimeError`` on a refused launch; returns the
-    number of launches."""
+    batch first. Raises ``RuntimeError`` on a refused launch (and, with a
+    NaN/Inf switch armed, ``FloatingPointError`` on such an output);
+    returns the number of launches."""
     lib = _build.load_library()
     dev = x0.device
     B, n = x0.shape
@@ -82,19 +84,22 @@ def launch(entry: str, plan: FleetPlan, x0: torch.Tensor, par: torch.Tensor,
                 k["kinst"].ctypes.data, plan.n_inst, plan.w32.ctypes.data,
                 plan.w64.ctypes.data, plan.perm.ctypes.data, k["fill_bits"],
                 *scalars, *(o.data_ptr() for o in outs), stream))
-            return 1
-        fn = getattr(lib, f"ezpz_{entry}_fleet_big")
-        tables = [t.data_ptr() for t in plan.device_tables(dev)]
-        n32, n64 = _build.big_slots(plan, f64)
-        spans = _build.chunks(B, 4 * n32 + 8 * n64)
-        for lo, hi in spans:
-            fscr = torch.empty((n32, hi - lo), dtype=torch.float32, device=dev)
-            dscr = torch.empty((max(n64, 1), hi - lo), dtype=torch.float64, device=dev)
-            check(fn(x0[lo:hi].data_ptr(), par[lo:hi].data_ptr(), hi - lo, n,
-                     plan.n_constraints, P, tables[0], plan.n_inst, *tables[1:],
-                     plan.fill, fscr.data_ptr(), dscr.data_ptr(), *scalars,
-                     *(o[lo:hi].data_ptr() for o in outs), stream))
-        return len(spans)
+            launches = 1
+        else:
+            fn = getattr(lib, f"ezpz_{entry}_fleet_big")
+            tables = [t.data_ptr() for t in plan.device_tables(dev)]
+            n32, n64 = _build.big_slots(plan, f64)
+            spans = _build.chunks(B, 4 * n32 + 8 * n64)
+            for lo, hi in spans:
+                fscr = torch.empty((n32, hi - lo), dtype=torch.float32, device=dev)
+                dscr = torch.empty((max(n64, 1), hi - lo), dtype=torch.float64, device=dev)
+                check(fn(x0[lo:hi].data_ptr(), par[lo:hi].data_ptr(), hi - lo, n,
+                         plan.n_constraints, P, tables[0], plan.n_inst, *tables[1:],
+                         plan.fill, fscr.data_ptr(), dscr.data_ptr(), *scalars,
+                         *(o[lo:hi].data_ptr() for o in outs), stream))
+            launches = len(spans)
+    debug.check_outputs(f"the {entry} fleet kernel", *outs)
+    return launches
 
 
 def param_rows(pars: Sequence[torch.Tensor], B: int, device) -> torch.Tensor:

@@ -443,7 +443,7 @@ class BlockSchurSolver:
         state = _init_state(self.system, x0, c.initial_lambda, lam_dtype=self.jac_dtype)
         final, res_conv = _lm_while_loop(
             state, self.system.residual_and_flags,
-            lambda s: self._schur_step(s.x, s.lam), c.max_iterations,
+            lambda s, _live: self._schur_step(s.x, s.lam), c.max_iterations,
             torch.as_tensor(c.residual_tolerance, dtype=self.dtype, device=dev),
             torch.as_tensor(c.step_tolerance, dtype=self.dtype, device=dev),
             boundary_parity=True)

@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .utils import debug
+
 
 def hello() -> str:
     """Smoke-test export (mirrors ezpz-wasm's ``hello()``)."""
@@ -113,7 +115,7 @@ class SolverService:
         self._queue: "queue.Queue[SolveRequest]" = queue.Queue()
         self._solvers: Dict[tuple, object] = {}
         self._stop = threading.Event()
-        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker = threading.Thread(target=self._run_armed, daemon=True)
         self._worker.start()
 
     # -- public API ---------------------------------------------------------
@@ -137,6 +139,12 @@ class SolverService:
         self._worker.join(timeout=5)
 
     # -- batching core -------------------------------------------------------
+
+    def _run_armed(self) -> None:
+        """The worker thread: ``_run``, with an armed NaN/Inf switch
+        reaching this thread too (``utils.debug``)."""
+        with debug.armed_in_thread():
+            self._run()
 
     def _run(self) -> None:
         while not self._stop.is_set():

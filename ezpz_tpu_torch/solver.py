@@ -15,13 +15,20 @@ leading batch axis of B lanes and the loop is written out:
   factorization is a rejected step, a step is accepted iff ``|r|^2``
   strictly drops, lambda times 0.1 on accept and 10 on reject.
 
+``solve_gauss_newton`` is the reference's fixed-damping variant (no
+accept/reject), and ``solve_lm_cg`` the same LM loop with a matrix-free
+conjugate-gradient step (``_cg``, one host sync per CG trip) for systems
+whose dense JtJ does not fit.
+
 ``make_solver`` is the public API's single-sketch solver: a batch of one
 lane, packed into one tensor so that a solve costs one device-to-host copy.
-``solve_gauss_newton`` and ``solve_lm_cg`` are not ported yet (ROADMAP.md).
+``EZPZ_TPU_DBG_JAC=1`` makes its f64 loop print every lane's dense
+Jacobian on every trip (the reference's ``dbg-jac`` feature).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -100,15 +107,17 @@ def _init_state(system, x0, initial_lambda, lam_dtype=None, pars=None,
 
 
 def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
-                   boundary_parity: bool):
+                   boundary_parity: bool, debug_fn=None):
     """The shared LM accept/reject loop over a batch.
 
-    ``step_fn(s) -> (d, fail, deg_j)`` gives the damped step (and the
-    Jacobian pass's degenerate flags); ``eval_fn(x) -> (r, deg)`` the trial
+    ``step_fn(s, live) -> (d, fail, deg_j)`` gives the damped step (and
+    the Jacobian pass's degenerate flags) on every lane; only the ``live``
+    lanes' steps are kept. ``eval_fn(x) -> (r, deg)`` gives the trial
     residual. ``limit``, ``rtol`` and ``stol`` are scalars or per-lane (B,)
     tensors. ``boundary_parity``: residual convergence counts only while
     steps remain (the reference never re-checks after its last iteration);
-    the f64 refinement passes False. Returns ``(final_state, res_conv)``."""
+    the f64 refinement passes False. ``debug_fn(s, live)``, when given,
+    runs at the top of every trip. Returns ``(final_state, res_conv)``."""
     s = state
     dtype = s.lam.dtype
     decr = torch.tensor(LM_LAMBDA_DECR, dtype=dtype, device=s.lam.device)
@@ -123,7 +132,9 @@ def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
             res_now = res_now & (s.it < limit)
         act = ~s.done & ~res_now
 
-        d, fail, deg_j = step_fn(s)
+        if debug_fn is not None:
+            debug_fn(s, live)
+        d, fail, deg_j = step_fn(s, live)
         step_inf = _rows_max_abs(d)
         x_new = s.x + d
         r_new, deg_r = eval_fn(x_new)
@@ -185,21 +196,149 @@ def damped_spd_solve(jtj, lam, b):
 
 
 def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
-             residual_tolerance, step_tolerance, initial_lambda, pars=None) -> LMResult:
+             residual_tolerance, step_tolerance, initial_lambda, pars=None,
+             debug_jac: bool = False) -> LMResult:
     """Run the LM loop on a batch ``x0`` (B, n) of one topology.
     ``residual_tolerance`` and ``step_tolerance`` are scalars or per-lane
     (B,) tensors; ``pars`` optionally overrides the per-block parameters
-    with (B, n_k, p_k) tensors."""
+    with (B, n_k, p_k) tensors. ``debug_jac`` prints the dense weighted
+    Jacobian of every live lane on every trip (the reference's ``dbg-jac``
+    feature, ``solver.rs:370-439``)."""
     dtype = system.dtype
     dev = x0.device
     rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
     stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
     state = _init_state(system, x0, initial_lambda, pars=pars)
 
-    def step(s: LMState):
+    def step(s: LMState, _live):
         _r, jtj, jtr, deg_j = system.normal_equations(s.x, pars)
         d, fail = damped_spd_solve(jtj, s.lam, -jtr)
         return d, fail, deg_j
+
+    debug_fn = None
+    if debug_jac:
+        def debug_fn(s: LMState, live):
+            J = system.jacobian_dense(s.x, pars).cpu().numpy()
+            its = s.it.cpu().numpy()
+            for b in torch.nonzero(live).flatten().tolist():
+                print(f"dbg-jac: iteration {its[b]}, dense Jacobian =\n{J[b]}",
+                      flush=True)
+
+    final, res_conv = _lm_while_loop(
+        state, lambda x: system.residual_and_flags(x, pars), step,
+        max_iterations, rtol, stol, boundary_parity=True, debug_fn=debug_fn)
+    return _reference_result(final, res_conv, max_iterations)
+
+
+def solve_gauss_newton(system: CompiledSystem, x0: torch.Tensor,
+                       max_iterations: int, residual_tolerance, step_tolerance,
+                       initial_lambda, pars=None) -> LMResult:
+    """Damped Gauss-Newton with a fixed damping ``initial_lambda`` over a
+    batch ``x0`` (B, n): the reference's variant kept beside LM
+    (``newton.rs:150-228``). No accept/reject: every step is taken.
+
+    Per lane, as the JAX package's loop: a trip evaluates the residual and
+    normal equations at x; residual convergence (``max|r| <= rtol``) ends
+    the lane without advancing its count; otherwise the damped step is
+    taken, unless its factorization failed (then x stays and the trip
+    cannot count as step convergence), and ``max|d| <= stol`` ends the lane
+    at that trip's index. The budget is strict (``it < max_iterations``).
+    The final residual and degenerate flags are evaluated once, after the
+    loop."""
+    dtype = system.dtype
+    x = x0.to(dtype)
+    B = x.shape[0]
+    dev = x.device
+    lam = torch.full((B,), initial_lambda, dtype=dtype, device=dev)
+    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
+    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    it = torch.zeros((B,), dtype=torch.int32, device=dev)
+    iterations = it
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)  # = converged
+    deg = torch.zeros((B, system.n_constraints), dtype=torch.bool, device=dev)
+    while True:
+        live = ~done & (it < max_iterations)
+        if not bool(live.any()):
+            break
+        r, jtj, jtr, deg_j = system.normal_equations(x, pars)
+        res_conv = _rows_max_abs(r) <= rtol
+        act = ~res_conv
+        d, fail = damped_spd_solve(jtj, lam, -jtr)
+        step_conv = act & ~fail & (_rows_max_abs(d) <= stol)
+        now = res_conv | step_conv
+        keep = live[:, None]
+        x = torch.where(keep & (act & ~fail)[:, None], x + d, x)
+        deg = deg | (deg_j & act[:, None] & keep)
+        iterations = torch.where(live & now, it, iterations)
+        done = done | (live & now)
+        it = torch.where(live & act, it + 1, it)
+    iterations = torch.where(done, iterations, torch.full_like(it, max_iterations))
+    r_final, deg_f = system.residual_and_flags(x, pars)
+    return LMResult(x=x, iterations=iterations, converged=done,
+                    deg=deg | deg_f, residual=r_final)
+
+
+def _cg(matvec, b: torch.Tensor, x0, tol, max_iters, minv_diag=None) -> torch.Tensor:
+    """Conjugate gradients on an SPD operator, on every lane of ``b`` (B,
+    n): ``matvec`` maps (B, n) to (B, n); ``x0`` (B, n) is the start (r0 =
+    b - A x0), ``None`` for zeros (r0 = b); ``tol`` (the absolute tolerance
+    on a lane's residual norm) and ``max_iters`` are scalars or per-lane
+    (B,) tensors. ``minv_diag`` (B, n), when given, is the Jacobi
+    preconditioner's elementwise inverse (``parallel.hier._pcg``).
+
+    Each lane stops where its own ``lax.while_loop`` would (``|r|^2 >
+    tol^2`` and fewer than ``max_iters`` trips, both strict): a trip
+    computes every lane and keeps the new state only on the lanes still
+    running, as ``vmap`` of the JAX loop does. One host sync per trip."""
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - matvec(x0)
+    z = r if minv_diag is None else minv_diag * r
+    p = z
+    rz = torch.sum(r * z, dim=-1)
+    it = torch.zeros(b.shape[:-1], dtype=torch.int32, device=b.device)
+    while True:
+        rs = rz if minv_diag is None else torch.sum(r * r, dim=-1)
+        live = (rs > tol * tol) & (it < max_iters)
+        if not bool(live.any()):
+            return x
+        ap = matvec(p)
+        alpha = rz / torch.sum(p * ap, dim=-1)
+        x_n = x + alpha[:, None] * p
+        r_n = r - alpha[:, None] * ap
+        z_n = r_n if minv_diag is None else minv_diag * r_n
+        rz_n = torch.sum(r_n * z_n, dim=-1)
+        p_n = z_n + (rz_n / rz)[:, None] * p
+        keep = live[:, None]
+        x, r, p = (torch.where(keep, a, c) for a, c in ((x_n, x), (r_n, r), (p_n, p)))
+        rz = torch.where(live, rz_n, rz)
+        it = torch.where(live, it + 1, it)
+
+
+def solve_lm_cg(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
+                residual_tolerance, step_tolerance, initial_lambda, pars=None,
+                cg_tol: float = 1e-12, cg_max_iters: int = 400) -> LMResult:
+    """LM with a matrix-free conjugate-gradient step, over a batch ``x0``
+    (B, n): ``(JtJ + lambda I) d = -Jt r`` is solved by ``_cg`` with
+    ``jtj_matvec`` on the per-block Jacobian factors (O(nnz) per trip), so
+    the dense (B, n, n) JtJ is never formed. lambda > 0 keeps the operator
+    SPD, so there is no factorization-failure path; everything else is
+    ``solve_lm``'s. A lane the loop does not step gets a CG budget of 0
+    (its step would be discarded)."""
+    dtype = system.dtype
+    dev = x0.device
+    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
+    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    state = _init_state(system, x0, initial_lambda, pars=pars)
+
+    def step(s: LMState, live):
+        _r, jtr, wjacs, deg_j = system.jacobian_factors(s.x, pars)
+        lam = s.lam[:, None]
+        budget = torch.where(live, cg_max_iters, 0)
+        d = _cg(lambda v: system.jtj_matvec(wjacs, v) + lam * v, -jtr,
+                torch.zeros_like(s.x), cg_tol, budget)
+        return d, torch.zeros_like(s.done), deg_j
 
     final, res_conv = _lm_while_loop(
         state, lambda x: system.residual_and_flags(x, pars), step,
@@ -254,7 +393,7 @@ def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
                         lam_dtype=system32.dtype, pars=pars64,
                         deg_extra=coarse_deg)
 
-    def step(s: LMState):
+    def step(s: LMState, _live):
         jtj, jtr, deg_j = system32.refine_normal_equations(s.x, s.r, pars32)
         d32, fail = damped_spd_solve(jtj, s.lam, -jtr)
         return d32.to(f64), fail, deg_j
@@ -279,7 +418,8 @@ def make_solver(system: CompiledSystem, max_iterations: int,
 
     ``precision="mixed"`` swaps ``solve_lm`` for ``solve_lm_mixed`` (f32
     trips, then the f64-residual refinement; iteration counts are then not
-    the reference's).
+    the reference's). ``EZPZ_TPU_DBG_JAC=1`` (read here) makes the f64
+    loop print the dense Jacobian on every trip.
 
     ``run`` returns ONE packed 1-D f64 tensor on the device, ``[x (n_vars)
     | sat (n_cons) | deg (n_cons) | converged | iterations]``, so the
@@ -288,6 +428,7 @@ def make_solver(system: CompiledSystem, max_iterations: int,
     if precision not in ("f64", "mixed"):
         raise ValueError(f"precision must be 'f64' or 'mixed', got {precision!r}")
     dev = resolve_device(device)
+    debug_jac = os.environ.get("EZPZ_TPU_DBG_JAC", "") not in ("", "0")
     system32 = system.astype(torch.float32) if precision == "mixed" else None
 
     def run(x0, residual_tolerance, step_tolerance, initial_lambda):
@@ -296,7 +437,7 @@ def make_solver(system: CompiledSystem, max_iterations: int,
         if system32 is not None:
             res = solve_lm_mixed(system, system32, x, *args)
         else:
-            res = solve_lm(system, x, *args)
+            res = solve_lm(system, x, *args, debug_jac=debug_jac)
         sat = system.satisfaction(res.x, res.residual)
         return pack_result(res.x[0], sat[0], res.deg[0], res.converged[0],
                            res.iterations[0])

@@ -283,6 +283,10 @@ def test_port_imports_no_jax():
         "import ezpz_tpu_torch.serve, ezpz_tpu_torch.embed, ezpz_tpu_torch.native\n"
         "import ezpz_tpu_torch.parallel, ezpz_tpu_torch.ops.banded\n"
         "import ezpz_tpu_torch.ops.banded_spd, ezpz_tpu_torch.benches.coupled_bench\n"
+        "import ezpz_tpu_torch.parallel.fleet, ezpz_tpu_torch.fixtures\n"
+        "import ezpz_tpu_torch.residual_viz, ezpz_tpu_torch.utils.debug\n"
+        "import ezpz_tpu_torch.examples.basic, ezpz_tpu_torch.examples.parser\n"
+        "import ezpz_tpu_torch.examples.scale\n"
         "ezpz_tpu_torch.native.load_fastparse(), ezpz_tpu_torch.native.load_fastdecomp()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"
