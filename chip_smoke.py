@@ -136,13 +136,48 @@ Phases (any failure exits non-zero before the result line):
    (d) the five ``residual_viz`` fields on the card, pixel-equal to the
    CPU's (or scoring >= 0.99 by ``compare_images``);
    (e) the three examples (``ezpz_tpu_torch.examples``) on the card, their
-   lines checked.
+   lines checked;
+10. the collective slice (``phase10``), the sharded solvers over
+   ``torch.distributed`` ranks (spawned; ``parallel.dist``):
+   (a) the 100,000-variable coupled chain of SHARDED_r03.json (25,000
+   lines of the ``coupled`` fixture; 2,500 parts, n_b = 19,992, bw = 11)
+   through ``ShardedBlockSchurSolver(boundary_solver="banded",
+   precision="mixed")`` under an NCCL group of every visible card (world 1
+   on one card), with a 60-trip LM budget (the trip count is decided by
+   f32 rounding here; the max|r| at the default 35 trips is printed):
+   converged, every constraint satisfied, the f64 residual
+   recomputed <= 1e-8, every rank's outcome rank 0's and every solve's the
+   first's (bit for bit); counts from zero in each rank: the banded kernel
+   launched; iterations, ms per solve (host clock, median of 3 after one
+   warm solve), collectives, bytes and host syncs per solve, banded calls
+   per solve, peak memory, one profiled solve; the same chain in f64 (exact
+   steps), and, as the witness of what rounding costs in trips, in mixed
+   with the dense boundary (the library's factorization) under the same
+   budget; then the kernel alone on the first boundary solve's band (B =
+   1) of the mixed run in f32 and of the f64 run in f64: held against its
+   plain version on the card at full size (within 1e-6; built to agree
+   bit for bit), backward stable (``band_backward_error`` <= 1e-6 in f32,
+   1e-13 in f64), and timed against the dense ``cholesky_ex`` +
+   ``cholesky_solve``; and why f32 solves of that band part (whether
+   the f32 band has a Cholesky factor in f64; PyTorch's CPU sqrt is not
+   correctly rounded, so the plain version on the host CPU parts from the
+   kernel);
+   (b) the 100,004-variable hub assembly (``fixtures.coupled_hub(25_001,
+   10)``, the CG boundary): the same checks, with its CG trips;
+   (c) 4 gloo ranks on cuda:0 (the only multi-rank check one card allows):
+   ``ShardedSchurSolver`` (dense, f64) on a 1,024-point horizontal chain
+   and (a)'s solver on the 2,500-line chain, against the same solvers as
+   a world of one on the card: flags and iterations equal, x within 1e-6;
+   (d) ``dryrun.dryrun_multichip`` over every visible card, and
+   ``python -m ezpz_tpu_torch.launch --demo schur`` and ``--demo fleet``
+   as one process each.
 
 The line before the last is a JSON record per kernel: launches in its main
-path's run, max |x_kernel - x_plain| at the main path's shapes, ms per
-main-path solve (the banded kernel: per call) for the kernel and for its
-plain version (CUDA events, median of 5; the banded plain version once,
-host clock), and the least time the card could take (``bound_ms``: the
+path's run (the banded kernel: phase 8's and phase 10a's runs), max
+|x_kernel - x_plain| at the main path's shapes, ms per main-path solve (the
+banded kernel: per call, at phase 8's operating point) for the kernel and
+for its plain version (CUDA events, median of 5; the banded plain version
+once, host clock), and the least time the card could take (``bound_ms``: the
 larger of the bytes each kernel must move over 3.35 TB/s and a lower
 bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
 counted from this run's inputs and iteration counts). No single PyTorch
@@ -1504,13 +1539,51 @@ def phase8_split(solver, x0s, card):
     return split, trips
 
 
-def phase8_kernel(band, rhs, card):
+def band_backward_error(Ab, x, b) -> float:
+    """Largest normwise backward error over the lanes of ``x`` (B, n) for
+    the symmetric banded systems of lower bands ``Ab`` (B, n, bw+1),
+    computed in f64: ``|A x - b|_inf / (|A|_inf |x|_inf + |b|_inf)``. A
+    backward-stable solve has it at a small multiple of its dtype's eps
+    however ill-conditioned ``A`` is; its forward error is then up to the
+    condition number times that."""
+    import torch
+
+    A, x, b = Ab.double(), x.double(), b.double()
+    n, bwp1 = A.shape[1:]
+    bw = bwp1 - 1
+    rows = torch.arange(n, device=A.device)
+    y = torch.zeros_like(x)
+    norm = torch.zeros_like(x)
+    for d in range(bwp1):
+        # The lower entry A[i, i - bw + d] and, off the diagonal, its
+        # mirror A[i - bw + d, i].
+        keep = rows - bw + d >= 0
+        col = (rows - bw + d)[keep]
+        a = A[:, keep, d]
+        y[:, keep] += a * x[:, col]
+        norm[:, keep] += a.abs()
+        if d < bw:
+            y.index_add_(1, col, a * x[:, keep])
+            norm.index_add_(1, col, a.abs())
+    scale = norm.max(1).values * x.abs().max(1).values + b.abs().max(1).values
+    return float(((y - b).abs().max(1).values / scale).max())
+
+
+# Backward error (``band_backward_error``) a banded solve must reach.
+BACKWARD_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-13}
+
+
+def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
     """The banded kernel alone at the operating point's band (the first
-    boundary solve of a main-path run): against its plain version (once:
-    a chain of ~n (bw^2 + 3 bw) launches) and against the PyTorch call
-    that computes the same function on the dense matrix of the same band
-    (``cholesky_ex`` + ``cholesky_solve``, the dense boundary's), in f32
-    and f64. Returns the f32 record of the kernels line."""
+    boundary solve of a main-path run): against its plain version on the
+    card at full size (once: a chain of ~n (bw^2 + 3 bw) launches), and
+    against the PyTorch call that computes the same function on the dense
+    matrix of the same band (``cholesky_ex`` + ``cholesky_solve``, the
+    dense boundary's), in f32 and f64 (or ``dtypes``). Kernel and plain
+    version must agree within X_TOL (they are built to agree bit for bit)
+    and the kernel's answer must be backward stable (BACKWARD_TOL); the
+    library's backward error and its difference from the kernel are
+    printed. Returns the record of the kernels line (f32's, if run)."""
     import torch
 
     from ezpz_tpu_torch.ops import banded
@@ -1518,7 +1591,7 @@ def phase8_kernel(band, rhs, card):
     B, n, bwp1 = band.shape
     bw = bwp1 - 1
     rec = None
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes or (torch.float32, torch.float64):
         Ab, b = band.to(dtype), rhs.to(dtype)
         x, fail = banded.banded_spd_solve(Ab, b)
         torch.cuda.synchronize()
@@ -1528,9 +1601,11 @@ def phase8_kernel(band, rhs, card):
         plain_ms = (time.perf_counter() - t0) * 1e3
         bits = torch.equal(x, xr) and torch.equal(fail, failr)
         err = float((x - xr).abs().max())
+        first = None if bits else int((x != xr).any(0).nonzero()[0])
         if not torch.equal(fail, failr) or err > X_TOL or bool(fail.any()):
-            raise SystemExit(f"chip_smoke: banded kernel differs from its plain version "
-                             f"({dtype}: max|dx|={err!r}, fails {int(fail.sum())})")
+            raise SystemExit(f"chip_smoke: {label} banded kernel differs from its plain "
+                             f"version ({dtype}, n={n}: max|dx|={err!r}, first differing "
+                             f"row {first}, fails {int(fail.sum())} / {int(failr.sum())})")
         kms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
         dense = torch.zeros((B, n, n), dtype=dtype, device=band.device)
         rows = torch.arange(n, device=band.device)[:, None]
@@ -1546,20 +1621,26 @@ def phase8_kernel(band, rhs, card):
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lx = library()
+        lx = library()[..., 0]
         torch.cuda.synchronize()
         once = (time.perf_counter() - t0) * 1e3
         lib_ms = once if once > LIBRARY_ONCE_MS else events_ms(library)
-        lerr = float((lx[..., 0] - x).abs().max() / x.abs().max())
-        del dense, lx
+        lerr = float((lx - x).abs().max() / x.abs().max())
+        del dense
+        kbe, lbe = band_backward_error(Ab, x, b), band_backward_error(Ab, lx, b)
         bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
-        print(f"phase8 banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
+        print(f"{label} banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
               f"(CUDA events, median of {REPS}, wrapper's transposes included), plain "
               f"version {plain_ms!r} ms (once, host clock), bit-equal {bits}; dense "
-              f"cholesky_ex + cholesky_solve {lib_ms!r} ms ({'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}; "
-              f"relative difference {lerr!r}); bound {bound!r} ms ({bound_by}, "
+              f"cholesky_ex + cholesky_solve {lib_ms!r} ms ("
+              f"{'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}); backward "
+              f"error kernel {kbe!r}, library {lbe!r}; relative difference library - "
+              f"kernel {lerr!r}; bound {bound!r} ms ({bound_by}, "
               f"{100 * bound / kms:.2f}% of the kernel's time); card: {card}", flush=True)
-        if dtype == torch.float32:
+        if kbe > BACKWARD_TOL[str(dtype)]:
+            raise SystemExit(f"chip_smoke: {label} banded kernel's backward error {kbe!r} "
+                             f"exceeds {BACKWARD_TOL[str(dtype)]!r}")
+        if rec is None or dtype == torch.float32:
             rec = dict(max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=lib_ms)
     return rec
@@ -1719,7 +1800,7 @@ def same_batch(label, out, ref):
     """Every field of two ``BatchResult``s equal bit for bit."""
     import torch
 
-    ok = all(torch.equal(getattr(out, f), getattr(ref, f))
+    ok = all(torch.equal(getattr(out, f).cpu(), getattr(ref, f).cpu())
              for f in ("x", "iterations", "converged", "satisfied", "degenerate"))
     print(f"{label}: bit-equal={ok}", flush=True)
     if not ok:
@@ -2002,6 +2083,257 @@ def phase9(dev, card):
           f"{[round(t, 1) for t in times]} s)", flush=True)
 
 
+# Phase 10: the collective slice.
+# The coupled chain of SHARDED_r03.json: 25,000 lines, 100,000 variables,
+# 2,500 parts (P, m, kb, n_b, band_bw below), banded boundary, mixed.
+SHARDED_LINES = 25_000
+SHARDED_STRUCTURE = (2500, 36, 19992, 11)  # n_parts, n_interior, n_boundary, bw
+# In mixed precision this chain's LM trips are decided by f32 rounding:
+# its boundary's softest modes lie near f32's resolution, so the f32
+# solves of a boundary band are backward stable (~4e-8) yet part by ~2%
+# (phase10a prints both; the condition number is at least their ratio).
+# JAX's CPU run reaches 9.94e-9 at trip 32 of the default 35; the card's
+# runs, banded and (the witness) dense, get this budget, and their max|r|
+# at the default budget's end is printed; the f64 solve (exact steps) runs
+# at the default budget.
+SHARDED_MAX_ITERATIONS = 60
+# The hub assembly of SHARDED_r03.json: 100,004 variables, 2,501 parts.
+HUB_LINES, HUB_CLUSTER = 25_001, 10
+SHARDED_REPS = 3
+# Several ranks on one card (gloo).
+GLOO_RANKS = 4
+GLOO_SCHUR_POINTS = 256 * GLOO_RANKS
+GLOO_CHAIN_LINES = 2_500
+LAUNCH_TIMEOUT = 300
+
+
+def sharded_report(label, rep, cons, n_vars, dev, card):
+    """Gate one rank-0 report of ``dryrun.run_cases``: converged, every
+    constraint satisfied, the f64 residual recomputed on the card <= 1e-8,
+    every rank's outcome equal to rank 0's and every rep's to the first
+    (bit-equal from run to run); print its numbers. Returns the median ms
+    of the timed reps."""
+    import torch
+
+    from ezpz_tpu_torch.models.compiled import compile_system
+
+    out, counts = rep["out"], rep["counts"]
+    history = rep["history"]
+    r = compile_system(cons, n_vars).residual(torch.as_tensor(out["x"], device=dev)[None])
+    rmax = float(r.abs().max())
+    timed_ms = rep["ms"][1:] or rep["ms"]  # a single rep: its first solve
+    ms = sorted(timed_ms)[len(timed_ms) // 2]
+    print(f"{label}: {n_vars} variables, {out['n_parts']} parts over {out['n_devices']} "
+          f"rank(s), n_boundary={out['n_boundary']} n_interior={out['n_interior']}; "
+          f"converged={out['converged']} satisfied={bool(out['satisfied'].all())} "
+          f"iterations={out['iterations']} f64_residual_max={rmax!r}; ranks agree "
+          f"{rep['agree']}, reps bit-equal {rep['reps_equal']}; {ms!r} ms per solve (host "
+          f"clock, median of {len(timed_ms)}: {[round(t, 3) for t in timed_ms]}; first "
+          f"{rep['ms'][0]!r} ms; set-up {rep['setup_s']:.1f} s); per solve: "
+          f"{counts['collectives']} collectives, {counts['bytes']} bytes, "
+          f"{counts['host_syncs']} host syncs, {counts['lm_trips']} LM trips, "
+          f"{counts['cg_trips']} CG trips, banded_spd calls {rep['banded_launches']}; "
+          f"peak device memory {rep['peak_bytes']!r} bytes (rank 0); max|r| after trips "
+          f"1, 2, 3, 12, 20, 32, 35 and the last: "
+          f"{[history[k - 1] for k in (1, 2, 3, 12, 20, 32, 35) if k <= len(history)]} "
+          f"{history[-1:]}; card: {card}", flush=True)
+    if rep.get("profile"):
+        prof = rep["profile"]
+        print(f"{label} profiled solve: {prof['launches']} kernel launches, device busy "
+              f"{prof['device_ms']!r} ms of {prof['wall_ms']!r} ms wall (profiled), idle "
+              f"share {1 - prof['device_ms'] / prof['wall_ms']!r}; top kernels (name, "
+              f"calls, device ms): {prof['top']}", flush=True)
+    if not (out["converged"] and out["satisfied"].all() and rmax <= 1e-8
+            and rep["agree"] and rep["reps_equal"]):
+        raise SystemExit(f"chip_smoke: {label} failed its gate")
+    return ms
+
+
+def phase10ab(dev, card):
+    """10a and 10b over an NCCL group of every visible card: the sharded
+    100,000-variable chain (``ShardedBlockSchurSolver``, banded, mixed) and
+    the 100,004-variable hub (CG), with the chain in f64 and, as the
+    witness of what rounding costs in trips, with the dense boundary.
+    Returns the chain's banded launches (mixed and f64) and the first
+    boundary solve's (band, rhs) of each."""
+    import torch
+
+    from ezpz_tpu_torch import dryrun, fixtures
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.parallel import dist
+
+    from ezpz_tpu_torch.config import Config
+
+    n_cards = torch.cuda.device_count()
+    chain, x0 = coupled_bench.build_problem(SHARDED_LINES)
+    hub, hub_x0, hub_parts = fixtures.coupled_hub(HUB_LINES, HUB_CLUSTER)
+    cases = [
+        dict(solver="hier", constraints=chain, n_vars=len(x0),
+             kwargs=dict(boundary_solver="banded", precision="mixed",
+                         config=Config(max_iterations=SHARDED_MAX_ITERATIONS)),
+             steps=[("solve", (x0,))], reps=1 + SHARDED_REPS, capture=True, profile=True),
+        dict(solver="hier", constraints=chain, n_vars=len(x0),
+             kwargs=dict(boundary_solver="banded", precision="f64"),
+             steps=[("solve", (x0,))], reps=1 + SHARDED_REPS, capture=True),
+        dict(solver="hier", constraints=chain, n_vars=len(x0),
+             kwargs=dict(boundary_solver="dense", precision="mixed",
+                         config=Config(max_iterations=SHARDED_MAX_ITERATIONS)),
+             steps=[("solve", (x0,))], reps=1),
+        dict(solver="hier", constraints=hub, n_vars=len(hub_x0),
+             kwargs=dict(part_of_var=hub_parts, boundary_solver="cg", precision="mixed"),
+             steps=[("solve", (hub_x0,))], reps=2),
+    ]
+    t0 = time.perf_counter()
+    (rep_a,), (rep_f64,), (rep_dense,), (rep_b,) = dist.run_ranks(
+        dryrun.run_cases, n_cards, "nccl", None, cases)
+    print(f"phase10ab: {n_cards} NCCL rank(s), {time.perf_counter() - t0:.1f} s with the "
+          f"ranks' spawn", flush=True)
+    sharded_report(f"phase10a sharded chain (banded, mixed, {SHARDED_MAX_ITERATIONS}-trip "
+                   f"budget)", rep_a, chain, len(x0), dev, card)
+    sharded_report("phase10a sharded chain (banded, f64)", rep_f64, chain, len(x0), dev, card)
+    sharded_report(f"phase10a witness: sharded chain (dense, mixed, "
+                   f"{SHARDED_MAX_ITERATIONS}-trip budget)", rep_dense, chain, len(x0), dev,
+                   card)
+    if rep_f64["banded_launches"] == 0:
+        raise SystemExit("chip_smoke: phase10a f64 did not launch the banded kernel")
+    band, rhs = rep_a["captured"]
+    out = rep_a["out"]
+    structure = (out["n_parts"], out["n_interior"], out["n_boundary"], band.shape[2] - 1)
+    if structure != SHARDED_STRUCTURE or rep_a["banded_launches"] == 0:
+        raise SystemExit(f"chip_smoke: phase10a structure {structure} is not "
+                         f"SHARDED_r03's {SHARDED_STRUCTURE}, or the banded kernel "
+                         f"was not launched")
+    sharded_report("phase10b hub (cg, mixed)", rep_b, hub, len(hub_x0), dev, card)
+    if rep_b["counts"]["cg_trips"] == 0:
+        raise SystemExit("chip_smoke: phase10b ran no CG trip")
+    bands = [tuple(torch.as_tensor(t, device=dev) for t in rep["captured"])
+             for rep in (rep_a, rep_f64)]
+    return rep_a["banded_launches"] + rep_f64["banded_launches"], bands
+
+
+def phase10c(dev, card):
+    """Several ranks on one card: GLOO_RANKS gloo ranks on cuda:0 against
+    the same solvers as a world of one on the card (no group in this
+    process): flags and iterations equal, x within X_TOL."""
+    from ezpz_tpu_torch import dryrun
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.fixtures import horizontal_chain
+    from ezpz_tpu_torch.parallel import ShardedBlockSchurSolver, ShardedSchurSolver, dist
+
+    schur_cons, schur_x0 = horizontal_chain(GLOO_SCHUR_POINTS)
+    chain, chain_x0 = coupled_bench.build_problem(GLOO_CHAIN_LINES)
+    runs = [
+        ("ShardedSchurSolver dense f64", ShardedSchurSolver, "schur", schur_cons,
+         schur_x0, dict(precision="f64", boundary_solver="dense")),
+        ("ShardedBlockSchurSolver banded mixed", ShardedBlockSchurSolver, "hier", chain,
+         chain_x0, dict(boundary_solver="banded", precision="mixed")),
+    ]
+    cases = [dict(solver=kind, constraints=cons, n_vars=len(x), kwargs=kw,
+                  steps=[("solve", (x,))], reps=2)
+             for _l, _c, kind, cons, x, kw in runs]
+    t0 = time.perf_counter()
+    reports = dist.run_ranks(dryrun.run_cases, GLOO_RANKS, "gloo",
+                             [str(dev)] * GLOO_RANKS, cases)
+    print(f"phase10c: {GLOO_RANKS} gloo ranks on {dev}, "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' spawn", flush=True)
+    for (label, cls, _k, cons, x, kw), (rep,) in zip(runs, reports):
+        one = cls(cons, len(x), device=dev, **kw).solve(x)
+        out = rep["out"]
+        same = all(out[k] == one[k] for k in ("converged", "iterations")) and all(
+            (out[k] == one[k]).all() for k in ("satisfied", "degenerate"))
+        err = float(abs(out["x"] - one["x"]).max())
+        print(f"phase10c {label}: {GLOO_RANKS} ranks n_boundary={out['n_boundary']} "
+              f"iterations={out['iterations']} converged={out['converged']}, world of one "
+              f"n_boundary={one['n_boundary']} iterations={one['iterations']}: flags and "
+              f"iterations equal {same}, max|dx|={err!r}; ranks agree {rep['agree']}, reps "
+              f"bit-equal {rep['reps_equal']}; {rep['counts']['collectives']} collectives "
+              f"per solve; {rep['ms'][-1]!r} ms; card: {card}", flush=True)
+        if not (same and err <= X_TOL and rep["agree"] and rep["reps_equal"]
+                and out["converged"]):
+            raise SystemExit(f"chip_smoke: phase10c {label} differs from its world of one")
+
+
+def phase10d(card):
+    """The multi-chip dry run over every visible card (NCCL), and the
+    launcher's schur and fleet demos as one process."""
+    import torch
+
+    from ezpz_tpu_torch import dryrun
+
+    n_cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    summary = dryrun.dryrun_multichip(n_cards)
+    print(f"phase10d dryrun_multichip({n_cards}): {summary} "
+          f"({time.perf_counter() - t0:.1f} s); card: {card}", flush=True)
+    if summary["fused_launches_rank0"] == 0:
+        raise SystemExit("chip_smoke: the dry run's fused path launched no kernel")
+    for demo, want in (("schur", "converged=True"), ("fleet", "sketches/sec")):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ezpz_tpu_torch.launch", "--demo", demo],
+                              capture_output=True, text=True, cwd=HERE,
+                              timeout=LAUNCH_TIMEOUT)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(("mesh:", demo))]
+        print(f"phase10d launch --demo {demo} ({time.perf_counter() - t0:.1f} s, exit "
+              f"{proc.returncode}): " + " | ".join(lines), flush=True)
+        if proc.returncode != 0 or not any(want in ln for ln in lines):
+            raise SystemExit(f"chip_smoke: launch --demo {demo} failed:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+
+
+def phase10_band(bands, card):
+    """The banded kernel alone at 10a's operating point (B = 1, n_b =
+    19,992): the mixed run's first band in f32 and the f64 run's in f64,
+    each against its plain version on the card at full size and against
+    the dense library solve (``phase8_kernel``). Then whether the f32 band
+    cast to f64 still has a Cholesky factor (its softest mode against f32
+    rounding), and how the plain version on the host CPU parts from the
+    kernel: PyTorch's CPU sqrt is not correctly rounded (counted against
+    numpy's on a million inputs; the card's is), and the band's condition
+    amplifies a last-bit difference."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.ops import banded
+
+    (band32, rhs32), (band64, rhs64) = bands
+    phase8_kernel(band32, rhs32, card, label="phase10a", dtypes=(torch.float32,))
+    phase8_kernel(band64, rhs64, card, label="phase10a", dtypes=(torch.float64,))
+    _x, fail64 = banded.banded_spd_solve(band32.double(), rhs32.double())
+    x, _fail = banded.banded_spd_solve(band32, rhs32)
+    t0 = time.perf_counter()
+    x_cpu, _fail = banded.banded_spd_reference(band32.cpu(), rhs32.cpu())
+    cpu_s = time.perf_counter() - t0
+    vals = np.random.default_rng(10).uniform(1e-3, 10.0, 1 << 20)
+    wrong = {}
+    for dtype in (np.float32, np.float64):
+        v = vals.astype(dtype)
+        want = np.sqrt(v)
+        wrong[dtype.__name__] = (
+            int((torch.as_tensor(v).sqrt().numpy() != want).sum()),
+            int((torch.as_tensor(v, device=band32.device).sqrt().cpu().numpy() != want).sum()))
+    print(f"phase10a band: the f32 band cast to f64 has a Cholesky factor: "
+          f"{not bool(fail64.any())}; plain version on the host CPU ({cpu_s:.1f} s) against "
+          f"the kernel: max|dx|={float((x_cpu - x.cpu()).abs().max())!r}; torch.sqrt results "
+          f"not correctly rounded of {1 << 20} (CPU, card): {wrong}; card: {card}", flush=True)
+
+
+def phase10(dev, card):
+    """The collective slice on the card. Returns the banded kernel's
+    launches on the sharded chain's runs."""
+    t_start = time.perf_counter()
+    launches, bands = phase10ab(dev, card)
+    t_ab = time.perf_counter() - t_start
+    phase10_band(bands, card)
+    t_kernel = time.perf_counter() - t_start - t_ab
+    phase10c(dev, card)
+    t_c = time.perf_counter() - t_start - t_ab - t_kernel
+    phase10d(card)
+    t_d = time.perf_counter() - t_start - t_ab - t_kernel - t_c
+    print(f"phase10 ok: {time.perf_counter() - t_start:.1f} s (ab, kernel, c, d: "
+          f"{[round(t, 1) for t in (t_ab, t_kernel, t_c, t_d)]} s)", flush=True)
+    return launches
+
+
 def kernel_ms(solvers, entry, plain=False):
     """Median ms per main-path solve of one kernel (or its plain version)
     alone: CUDA events around INNER solves of every bucket, on inputs made
@@ -2079,6 +2411,10 @@ def main() -> int:
     phase7(dev, card, full, api_us)
     band = phase8(dev, card)
     phase9(dev, card)
+    launches = phase10(dev, card)
+    # The banded kernel's record is phase 8's operating point's; its
+    # launches are those of both of its main-path runs.
+    band = dict(band, launches=band["launches"] + launches)
     kernels = []
     for name, rec, replaces in (
             ("fused_fleet", fused, "ezpz_tpu/ops/pallas_fleet.py:898"),

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..constraints import Constraint
-from ..ops.kernels import KERNELS, KernelSpec
+from ..ops.kernels import KERNELS, KernelSpec, jvp
 
 EPSILON = 1e-4  # satisfaction tolerance, ezpz/src/lib.rs:43
 
@@ -164,8 +164,7 @@ class CompiledSystem:
         wjac = []
         for a in range(spec.nvars):
             tangent = tuple(one if r == a else zero for r in range(spec.nvars))
-            res, dres, deg = torch.func.jvp(
-                lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent, has_aux=True)
+            res, dres, deg = jvp(lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent)
             wjac.append([dres[d] * w for d in range(spec.dim)])
         return res, wjac, deg, w
 

@@ -19,7 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -42,6 +44,19 @@ SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
 
 # Register capacities of the banded SPD kernel (CAPS in csrc/banded_spd.cu).
 BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
+
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launches(module: str, n: int) -> None:
+    """Add ``n`` to the ``LAUNCHES`` counter of the wrapper module named
+    ``module``. Under a lock: ``FleetSolver`` launches from one thread per
+    card, and an unguarded read-add-store loses updates (the ctypes launch
+    releases the interpreter lock)."""
+    mod = sys.modules[module]
+    with _LAUNCHES_LOCK:
+        mod.LAUNCHES += n
+
 
 # Scratch of one big-topology launch; a larger batch is launched in chunks.
 MAX_SCRATCH_BYTES = 1 << 30

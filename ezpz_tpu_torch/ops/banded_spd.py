@@ -34,7 +34,6 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     ``ops.banded.banded_spd_reference`` does. Raises when the inputs are
     not on a CUDA device, the band is wider than the kernel's largest
     capacity, ``nvcc`` or the build fails, or the launch is refused."""
-    global LAUNCHES
     if Ab.device.type != "cuda" or b.device != Ab.device:
         raise ValueError(f"banded_spd_cuda takes CUDA tensors on one device, got "
                          f"{Ab.device} and {b.device}")
@@ -66,6 +65,6 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     if err != 0:
         raise RuntimeError(f"banded_spd kernel launch failed: cudaError {err} "
                            f"({_build.error_string(lib, err)})")
-    LAUNCHES += 1
+    _build.count_launches(__name__, 1)
     debug.check_outputs("the banded_spd kernel", x_t)
     return x_t.permute(2, 0, 1).reshape(b.shape), fail

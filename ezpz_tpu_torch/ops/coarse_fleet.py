@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
+from . import _build
 from .fleet_common import (Topology, check_admitted, check_inputs, coarse_phase,
                            launch, param_rows)
 from .fleet_plan import FleetPlan
@@ -54,7 +55,6 @@ def coarse_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     holds the topology, else the big-topology kernel per chunk of the
     batch) or raises: when ``nvcc`` is missing, the build fails, or the
     launch fails. Only a CPU ``x0`` takes the plain version."""
-    global LAUNCHES
     check_admitted(plan)
     if x0.device.type == "cpu":
         return coarse_fleet_reference(plan, x0, pars, trips=trips,
@@ -74,8 +74,9 @@ def coarse_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
             torch.empty((B, plan.n_constraints), dtype=torch.bool, device=dev))
     scalars = (trips, tolerance, step_tolerance, initial_lambda,
                float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)))
-    LAUNCHES += launch("coarse", plan, x0.contiguous(), param_rows(pars, B, dev),
-                       scalars, outs, f64=False)
+    _build.count_launches(__name__, launch("coarse", plan, x0.contiguous(),
+                                           param_rows(pars, B, dev), scalars, outs,
+                                           f64=False))
     return outs
 
 

@@ -22,7 +22,7 @@ from . import _build
 from .fleet_plan import (INST_CID, INST_DIM, INST_IDS, INST_KIND, INST_NV,
                          INST_POFF, INST_PK, KERNEL_MAX_FILL,
                          KERNEL_MAX_INSTANCES, FleetPlan)
-from .kernels import KERNELS
+from .kernels import KERNELS, jvp
 
 
 def check_inputs(plan: FleetPlan, x0: torch.Tensor, pars: Sequence[torch.Tensor]):
@@ -87,7 +87,9 @@ def launch(entry: str, plan: FleetPlan, x0: torch.Tensor, par: torch.Tensor,
             launches = 1
         else:
             fn = getattr(lib, f"ezpz_{entry}_fleet_big")
-            tables = [t.data_ptr() for t in plan.device_tables(dev)]
+            # Held until the launches are queued: the kernel reads them.
+            held = plan.device_tables(dev)
+            tables = [t.data_ptr() for t in held]
             n32, n64 = _build.big_slots(plan, f64)
             spans = _build.chunks(B, 4 * n32 + 8 * n64)
             for lo, hi in spans:
@@ -195,8 +197,7 @@ def normal_equations(topo, xs, par, rhs):
         cols = []
         for a in range(len(ids)):
             tangent = tuple(one if r == a else zero for r in range(len(ids)))
-            _res, dres, dg = torch.func.jvp(lambda *vv: fn(vv, p), v, tangent,
-                                            has_aux=True)
+            _res, dres, dg = jvp(lambda *vv: fn(vv, p), v, tangent)
             cols.append(dres)
         wres = rhs[row:row + dim]
         row += dim

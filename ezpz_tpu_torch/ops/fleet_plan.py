@@ -422,11 +422,12 @@ class FleetPlan:
 
     def device_tables(self, device):
         """``big_tables`` as tensors on ``device``, uploaded once per
-        device."""
+        device. Threads that upload at once keep the first stored copy
+        (``setdefault``), so every launch reads the tables the cache holds."""
         key = str(device)
         if key not in self._tables:
-            self._tables[key] = tuple(torch.as_tensor(a).to(device)
-                                      for a in self.big_tables())
+            self._tables.setdefault(key, tuple(torch.as_tensor(a).to(device)
+                                               for a in self.big_tables()))
         return self._tables[key]
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
+from . import _build
 from .fleet_common import (Topology, check_admitted, check_inputs, coarse_phase,
                            damped_solve, launch, normal_equations, param_rows,
                            residual_rows, rows_max_abs, rows_sumsq)
@@ -66,7 +67,6 @@ def fused_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
     big-topology kernel, one launch per chunk of the batch) or raises:
     when ``nvcc`` is missing, the build fails, or the launch fails. Only a
     CPU ``x0`` takes the plain version."""
-    global LAUNCHES
     check_admitted(plan)
     if x0.device.type == "cpu":
         return fused_fleet_reference(
@@ -91,8 +91,9 @@ def fused_fleet_solve(plan: FleetPlan, x0: torch.Tensor,
                coarse_tolerance, coarse_step_tolerance, step_tolerance,
                residual_tolerance, initial_lambda,
                float(np.float32(LM_LAMBDA_DECR)), float(np.float32(LM_LAMBDA_INCR)))
-    LAUNCHES += launch("fused", plan, x0.contiguous(), param_rows(pars, B, dev),
-                       scalars, outs, f64=True)
+    _build.count_launches(__name__, launch("fused", plan, x0.contiguous(),
+                                           param_rows(pars, B, dev), scalars, outs,
+                                           f64=True))
     return outs
 
 

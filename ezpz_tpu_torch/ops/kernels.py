@@ -32,10 +32,23 @@ exactly 0 or pi.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict
 
 import torch
+
+# torch.func.jvp's forward-AD level is one per process, not per thread: two
+# threads inside jvp at once exit each other's level (``FleetSolver`` runs
+# one thread per card).
+_JVP_LOCK = threading.Lock()
+
+
+def jvp(fn, primals, tangents):
+    """``torch.func.jvp(fn, primals, tangents, has_aux=True)``, one thread
+    at a time."""
+    with _JVP_LOCK:
+        return torch.func.jvp(fn, primals, tangents, has_aux=True)
 
 EPSILON = 1e-4  # ezpz/src/lib.rs:43
 _EPS2 = EPSILON * EPSILON

@@ -37,7 +37,8 @@ device raises if PyTorch's float32 matmul precision allows TF32.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,10 +49,9 @@ from ..models.compiled import CompiledSystem, KindBlock, compile_system, gather_
 from ..ops.banded import banded_spd_solve
 from ..ops.kernels import KERNELS
 from ..ops.linalg import spd_solve, spd_solve_batched, spd_solve_multi_batched
-from ..solver import (LMResult, _init_state, _lm_while_loop, _reference_result,
+from ..solver import (LMResult, _cg, _init_state, _lm_while_loop, _reference_result,
                       pack_result, resolve_device, unpack_solver_result)
-from .hier import _pcg
-from .schur import partition_variables, resolve_boundary_solver
+from .schur import partition_variables, require_full_f32, resolve_boundary_solver
 
 
 class _SegmentSum:
@@ -78,6 +78,224 @@ class _SegmentSum:
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
         """(B, n_in) -> (B, n_out)."""
         return gather_sum(vals, self.entries, self.gather, self.n_out)
+
+
+@dataclass
+class PartPlan:
+    """The host-side (numpy) plan of a partitioned-Schur solve: P parts,
+    stacked over ``rows >= P`` part rows (the rows past P empty, for an
+    even split over ranks). ``l2g`` (rows, m + kb) gathers a part's local
+    vector from x (slot n_vars reads an appended zero); ``bmap`` (rows, kb)
+    sends its boundary entries to the global boundary (slot n_b: dropped);
+    ``int_map`` (rows, m) sends its interior steps out (slot n_vars:
+    dropped); ``imask`` (rows, m) marks real interior slots; the band of
+    half-bandwidth ``band_bw`` takes entry (p, k, j) to row ``band_rows``
+    at offset ``band_off`` (offset bw + 1: dropped). ``jblocks`` holds per
+    kernel kind ``(spec, idx, par, wgt, cid)``, (rows, n_max, ...), with
+    local indices; padded instances have slot 0, zero parameters and
+    weight, and constraint id ``n_constraints``."""
+
+    n_vars: int
+    P: int
+    boundary: List[int]
+    n_b: int
+    m: int
+    kb: int
+    l2g: np.ndarray
+    bmap: np.ndarray
+    int_map: np.ndarray
+    imask: np.ndarray
+    band_bw: int
+    band_rows: np.ndarray
+    band_off: np.ndarray
+    jblocks: list
+
+
+def plan_parts(constraints: Sequence[Constraint], n_vars: int, part_of_var: np.ndarray,
+               weights: Sequence[float], rows: Optional[int] = None) -> PartPlan:
+    """Plan the parts of ``part_of_var`` (the JAX package's layout, one
+    pass over the variables and one over the constraints)."""
+    part_of_var = np.asarray(part_of_var)
+    P = int(part_of_var.max()) + 1 if n_vars else 1
+    rows = P if rows is None else rows
+    n_cons = len(constraints)
+    _pv, boundary = partition_variables(constraints, n_vars, P, part_of_var)
+    bset = set(boundary)
+    n_b = len(boundary)
+    b_slot = {g: j for j, g in enumerate(boundary)}
+    interior: List[List[int]] = [[] for _ in range(P)]
+    for v in range(n_vars):
+        if v not in bset:
+            interior[int(part_of_var[v])].append(v)
+    m = max((len(iv) for iv in interior), default=0)
+
+    # Constraint -> part: single-home constraints to their part,
+    # all-boundary couplers round-robin.
+    per_part: List[List[int]] = [[] for _ in range(P)]
+    rr = 0
+    for cid, c in enumerate(constraints):
+        homes = {int(part_of_var[v]) for v in c.dependent_variable_ids()}
+        if len(homes) == 1:
+            per_part[homes.pop()].append(cid)
+        else:
+            per_part[rr % P].append(cid)
+            rr += 1
+
+    # Per-part LOCAL boundary: only the boundary variables its
+    # constraints touch.
+    local_b = [
+        sorted({v for cid in per_part[p]
+                for v in constraints[cid].dependent_variable_ids() if v in bset})
+        for p in range(P)
+    ]
+    kb = max((len(t) for t in local_b), default=0)
+    n_loc = m + kb
+
+    l2g = np.full((rows, n_loc), n_vars, dtype=np.int32)
+    g2l = [dict() for _ in range(P)]
+    bmap = np.full((rows, kb), n_b, dtype=np.int32)
+    int_map = np.full((rows, m), n_vars, dtype=np.int32)
+    imask = np.zeros((rows, m))
+    for p in range(P):
+        for i, g in enumerate(interior[p]):
+            l2g[p, i] = g
+            g2l[p][g] = i
+            int_map[p, i] = g
+        for j, g in enumerate(local_b[p]):
+            l2g[p, m + j] = g
+            g2l[p][g] = m + j
+            bmap[p, j] = b_slot[g]
+        imask[p, : len(interior[p])] = 1.0
+
+    # The band: half-bandwidth = widest within-part boundary span under
+    # the natural ordering (a part's Schur block couples only its own
+    # boundary slots, so the lower band captures S exactly). Each
+    # (part, k, j) block entry maps to (row slot, band offset); upper-
+    # triangle and dummy entries get out-of-range offsets (dropped).
+    spans = [
+        int(r.max() - r.min())
+        for p in range(rows)
+        for r in (bmap[p][bmap[p] < n_b],)
+        if r.size
+    ]
+    bw = max(spans, default=0)
+    brows = np.repeat(bmap[:, :, None], kb, axis=2)
+    bcols = np.repeat(bmap[:, None, :], kb, axis=1)
+    off = bcols - brows + bw
+    invalid = (brows >= n_b) | (bcols >= n_b) | (off < 0) | (off > bw)
+
+    per_part_kinds: List[dict] = []
+    for p in range(P):
+        slots: dict = {}
+        for cid in per_part[p]:
+            for inst in constraints[cid].lower():
+                ks = slots.setdefault(
+                    inst.kernel, {"idx": [], "par": [], "w": [], "cid": []}
+                )
+                ks["idx"].append(tuple(g2l[p][v] for v in inst.var_ids))
+                ks["par"].append(inst.params)
+                ks["w"].append(weights[cid])
+                ks["cid"].append(cid)
+        per_part_kinds.append(slots)
+    jblocks = []
+    for kind in sorted({k for s in per_part_kinds for k in s}):
+        spec = KERNELS[kind]
+        n_max = max(len(per_part_kinds[p].get(kind, {"idx": []})["idx"])
+                    for p in range(P))
+        idx = np.zeros((rows, n_max, spec.nvars), dtype=np.int32)
+        par = np.zeros((rows, n_max, spec.nparams), dtype=np.float64)
+        wgt = np.zeros((rows, n_max), dtype=np.float64)
+        cid = np.full((rows, n_max), n_cons, dtype=np.int32)
+        for p in range(P):
+            ks = per_part_kinds[p].get(kind)
+            if not ks or not ks["idx"]:
+                continue
+            nn = len(ks["idx"])
+            idx[p, :nn] = np.asarray(ks["idx"], np.int32)
+            par[p, :nn] = np.asarray(ks["par"], np.float64).reshape(nn, spec.nparams)
+            wgt[p, :nn] = ks["w"]
+            cid[p, :nn] = ks["cid"]
+        jblocks.append((spec, idx, par, wgt, cid))
+    return PartPlan(n_vars=n_vars, P=P, boundary=boundary, n_b=n_b, m=m, kb=kb, l2g=l2g, bmap=bmap,
+                    int_map=int_map, imask=imask, band_bw=bw,
+                    band_rows=np.where(invalid, n_b, brows),
+                    band_off=np.where(invalid, bw + 1, off), jblocks=jblocks)
+
+
+def part_system(plan: PartPlan, lo: int, hi: int, n_constraints: int,
+                dtype: torch.dtype, unweighted_to_dummy: bool = False) -> CompiledSystem:
+    """Parts ``lo:hi`` as one system over their flattened local vectors
+    (parts of m + kb variables; constraint slot ``n_constraints`` is the
+    padding's). ``unweighted_to_dummy`` sends weight-0 instances to that
+    slot too, so that they neither flag degenerate nor count as
+    unsatisfied (the sharded solver's rule)."""
+    n_loc = plan.m + plan.kb
+    offs = (np.arange(hi - lo, dtype=np.int32) * n_loc)[:, None, None]
+    blocks = []
+    for spec, idx, par, wgt, cid in plan.jblocks:
+        idx, par, wgt, cid = idx[lo:hi], par[lo:hi], wgt[lo:hi], cid[lo:hi]
+        if unweighted_to_dummy:
+            cid = np.where(wgt > 0, cid, n_constraints)
+        blocks.append(KindBlock(spec=spec, idx=(idx + offs).reshape(wgt.size, spec.nvars),
+                                par=par.reshape(wgt.size, spec.nparams),
+                                weight=wgt.reshape(-1), cid=cid.reshape(-1)))
+    return CompiledSystem(
+        n_vars=(hi - lo) * n_loc, n_constraints=n_constraints + 1,
+        n_rows=sum(b.idx.shape[0] * b.spec.dim for b in blocks),
+        blocks=tuple(blocks), part_size=n_loc,
+    ).astype(dtype)
+
+
+def part_index_tensors(plan: PartPlan, lo: int, hi: int, dev) -> Tuple[torch.Tensor, ...]:
+    """Parts ``lo:hi``'s gathers on ``dev``: ``l2g`` and ``bmap``
+    flattened, the interior steps' source (flat local slot) and
+    destination (variable) for real slots, and the boundary ids."""
+    def as_long(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    int_map = plan.int_map[lo:hi].reshape(-1)
+    real = int_map < plan.n_vars
+    return (as_long(plan.l2g[lo:hi].reshape(-1)), as_long(plan.bmap[lo:hi].reshape(-1)),
+            as_long(np.flatnonzero(real)), as_long(int_map[real]), as_long(plan.boundary))
+
+
+def part_segment_sums(plan: PartPlan, lo: int, hi: int, boundary_solver: str, dev):
+    """Parts ``lo:hi``'s fixed-order sums into the boundary: the (n_b,)
+    vector, and the band (banded boundary) or the dense (n_b, n_b) matrix
+    (dense boundary), else None."""
+    n_b, bw, kb = plan.n_b, plan.band_bw, plan.kb
+    bmap = plan.bmap[lo:hi]
+    band = dense = None
+    if boundary_solver == "banded":
+        rows, off = plan.band_rows[lo:hi], plan.band_off[lo:hi]
+        band = _SegmentSum(np.where(off > bw, -1, rows * (bw + 1) + off),
+                           n_b * (bw + 1), dev)
+    elif boundary_solver == "dense":
+        rows = np.repeat(bmap[:, :, None], kb, axis=2)
+        cols = np.repeat(bmap[:, None, :], kb, axis=1)
+        dense = _SegmentSum(np.where((rows >= n_b) | (cols >= n_b), -1, rows * n_b + cols),
+                            n_b * n_b, dev)
+    return _SegmentSum(bmap, n_b, dev), band, dense
+
+
+def damped_blocks(jtj, jtr, lam_j, imask, m):
+    """The damped per-part blocks of normal equations ``jtj`` (B, P, n_loc,
+    n_loc), ``jtr`` (B, P, n_loc) with ``lam_j`` (B,): ``(A_ii, A_iB,
+    A_BB, b_i, b_B)``, a unit diagonal on padded interior slots (``imask``
+    (P, m) zero) keeping A_ii SPD."""
+    eye_m = torch.eye(m, dtype=jtj.dtype, device=jtj.device)
+    a_ii = (jtj[..., :m, :m]
+            + lam_j[:, None, None, None] * eye_m * imask[:, None, :]
+            + (1.0 - imask)[:, :, None] * eye_m)
+    return a_ii, jtj[..., :m, m:], jtj[..., m:, m:], -jtr[..., :m], -jtr[..., m:]
+
+
+def interior_solve(a_ii, a_ib, b_i):
+    """``(u, W, fail)``: u = A_ii^-1 b_i and W = A_ii^-1 A_iB from ONE
+    factorization per part (b_i packed beside A_iB as a multi-RHS solve),
+    so that d_i = u - W d_B needs no third solve."""
+    sol, fail = spd_solve_multi_batched(a_ii, torch.cat([b_i[..., None], a_ib], dim=-1))
+    return sol[..., 0], sol[..., 1:], fail
 
 
 class BlockSchurSolver:
@@ -148,7 +366,6 @@ class BlockSchurSolver:
                 np.arange(n_vars) * n_parts // max(n_vars, 1), n_parts - 1
             )
         part_of_var = np.asarray(part_of_var)
-        P = int(part_of_var.max()) + 1 if n_vars else 1
         self.config = config
         self.precision = precision
         self.dtype = dtype
@@ -162,159 +379,28 @@ class BlockSchurSolver:
         # degeneracy through the same code as solve_lm.
         self.system = compile_system(constraints, n_vars, weights, dtype)
 
-        _pv, boundary = partition_variables(constraints, n_vars, P, part_of_var)
-        bset = set(boundary)
-        self.boundary = boundary
-        self.n_b = n_b = len(boundary)
-        b_slot = {g: j for j, g in enumerate(boundary)}
-        interior: List[List[int]] = [
-            [v for v in range(n_vars) if part_of_var[v] == p and v not in bset]
-            for p in range(P)
-        ]
-        self.P = P
-        m = max((len(iv) for iv in interior), default=0)
-        self.m = m
+        plan = plan_parts(constraints, n_vars, part_of_var, weights)
+        self.P, self.m, self.kb, self.n_b = plan.P, plan.m, plan.kb, plan.n_b
+        self.boundary = plan.boundary
+        self.l2g, self.bmap, self.int_map = plan.l2g, plan.bmap, plan.int_map
+        self.band_bw = plan.band_bw
+        self.band_rows, self.band_off = plan.band_rows, plan.band_off
+        self.imask = plan.imask
+        self.boundary_solver = resolve_boundary_solver(
+            boundary_solver, plan.n_b, plan.band_bw)
 
-        # Constraint -> part: single-home constraints to their part,
-        # all-boundary couplers round-robin.
-        per_part: List[List[int]] = [[] for _ in range(P)]
-        rr = 0
-        for cid, c in enumerate(constraints):
-            homes = {int(part_of_var[v]) for v in c.dependent_variable_ids()}
-            if len(homes) == 1:
-                per_part[homes.pop()].append(cid)
-            else:
-                per_part[rr % P].append(cid)
-                rr += 1
-
-        # Per-part LOCAL boundary: only the boundary variables its
-        # constraints touch.
-        local_b = [
-            sorted({v for cid in per_part[p]
-                    for v in constraints[cid].dependent_variable_ids() if v in bset})
-            for p in range(P)
-        ]
-        kb = max((len(t) for t in local_b), default=0)
-        self.kb = kb
-        n_loc = m + kb
-
-        # l2g gathers x per part (dummy slot n_vars reads an appended zero);
-        # bmap sends each part's boundary entries to the global boundary
-        # (dummy slot n_b is dropped); int_map sends interior steps out.
-        l2g = np.full((P, n_loc), n_vars, dtype=np.int32)
-        g2l = [dict() for _ in range(P)]
-        bmap = np.full((P, kb), n_b, dtype=np.int32)
-        int_map = np.full((P, m), n_vars, dtype=np.int32)
-        for p in range(P):
-            for i, g in enumerate(interior[p]):
-                l2g[p, i] = g
-                g2l[p][g] = i
-                int_map[p, i] = g
-            for j, g in enumerate(local_b[p]):
-                l2g[p, m + j] = g
-                g2l[p][g] = m + j
-                bmap[p, j] = b_slot[g]
-        self.l2g = l2g
-        self.bmap = bmap
-        self.int_map = int_map
-
-        # The band: half-bandwidth = widest within-part boundary span under
-        # the natural ordering (a part's Schur block couples only its own
-        # boundary slots, so the lower band captures S exactly). Each
-        # (part, k, j) block entry maps to (row slot, band offset); upper-
-        # triangle and dummy entries get out-of-range offsets (dropped).
-        spans = [
-            int(r.max() - r.min())
-            for p in range(P)
-            for r in (bmap[p][bmap[p] < n_b],)
-            if r.size
-        ]
-        self.band_bw = bw = max(spans, default=0)
-        rows = np.repeat(bmap[:, :, None], kb, axis=2)
-        cols = np.repeat(bmap[:, None, :], kb, axis=1)
-        off = cols - rows + bw
-        invalid = (rows >= n_b) | (cols >= n_b) | (off < 0) | (off > bw)
-        self.band_rows = np.where(invalid, n_b, rows)
-        self.band_off = np.where(invalid, bw + 1, off)
-        self.boundary_solver = resolve_boundary_solver(boundary_solver, n_b, bw)
-        imask = np.zeros((P, m))
-        for p in range(P):
-            imask[p, : len(interior[p])] = 1.0
-        self.imask = imask
-
-        # The per-part kernel blocks with local indices, stacked over the
-        # parts (padded instances: local slot 0, zero parameters and
-        # weight, constraint id n_constraints).
-        per_part_kinds: List[dict] = []
-        for p in range(P):
-            slots: dict = {}
-            for cid in per_part[p]:
-                for inst in constraints[cid].lower():
-                    ks = slots.setdefault(
-                        inst.kernel, {"idx": [], "par": [], "w": [], "cid": []}
-                    )
-                    ks["idx"].append(tuple(g2l[p][v] for v in inst.var_ids))
-                    ks["par"].append(inst.params)
-                    ks["w"].append(weights[cid])
-                    ks["cid"].append(cid)
-            per_part_kinds.append(slots)
-        jblocks = []
-        for kind in sorted({k for s in per_part_kinds for k in s}):
-            spec = KERNELS[kind]
-            n_max = max(len(per_part_kinds[p].get(kind, {"idx": []})["idx"])
-                        for p in range(P))
-            idx = np.zeros((P, n_max, spec.nvars), dtype=np.int32)
-            par = np.zeros((P, n_max, spec.nparams), dtype=np.float64)
-            wgt = np.zeros((P, n_max), dtype=np.float64)
-            cid = np.full((P, n_max), self.n_constraints, dtype=np.int32)
-            for p in range(P):
-                ks = per_part_kinds[p].get(kind)
-                if not ks or not ks["idx"]:
-                    continue
-                nn = len(ks["idx"])
-                idx[p, :nn] = np.asarray(ks["idx"], np.int32)
-                par[p, :nn] = np.asarray(ks["par"], np.float64).reshape(nn, spec.nparams)
-                wgt[p, :nn] = ks["w"]
-                cid[p, :nn] = ks["cid"]
-            jblocks.append((spec, idx, par, wgt, cid))
-
-        # The parts as one system over the flattened local vector (P parts
-        # of n_loc variables, constraint slot n_constraints the padding's):
-        # residual rows and flags in the solve dtype, Jacobians and the
-        # per-part normal equations in jac_dtype, by the compiled system's
-        # own evaluation and fixed-order assembly.
-        offs = (np.arange(P, dtype=np.int32) * n_loc)[:, None, None]
-        local = CompiledSystem(
-            n_vars=P * n_loc, n_constraints=self.n_constraints + 1,
-            n_rows=sum(idx.shape[0] * idx.shape[1] * spec.dim
-                       for spec, idx, *_ in jblocks),
-            blocks=tuple(
-                KindBlock(spec=spec, idx=(idx + offs).reshape(wgt.size, spec.nvars),
-                          par=par.reshape(wgt.size, spec.nparams),
-                          weight=wgt.reshape(-1), cid=cid.reshape(-1))
-                for spec, idx, par, wgt, cid in jblocks),
-            part_size=n_loc,
-        ).astype(dtype)
-        self._local = local
-        self._local_j = local.astype(self.jac_dtype)
-
+        # The parts as one system over the flattened local vector: residual
+        # rows and flags in the solve dtype, Jacobians and the per-part
+        # normal equations in jac_dtype, by the compiled system's own
+        # evaluation and fixed-order assembly.
+        self._local = part_system(plan, 0, plan.P, self.n_constraints, dtype)
+        self._local_j = self._local.astype(self.jac_dtype)
         dev = self.device
-        as_long = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)  # noqa: E731
-        self._l2g = as_long(l2g.reshape(-1))
-        self._bmap = as_long(bmap.reshape(-1))
-        real = int_map.reshape(-1) < n_vars
-        self._int_src = as_long(np.flatnonzero(real))
-        self._int_dst = as_long(int_map.reshape(-1)[real])
-        self._boundary = as_long(boundary)
-        self._imask = torch.as_tensor(imask, dtype=self.jac_dtype, device=dev)
-        self._seg_b = _SegmentSum(bmap, n_b, dev)
-        if self.boundary_solver == "banded":
-            self._seg_band = _SegmentSum(
-                np.where(invalid, -1, rows * (bw + 1) + off), n_b * (bw + 1), dev)
-        elif self.boundary_solver == "dense":
-            self._seg_dense = _SegmentSum(
-                np.where((rows >= n_b) | (cols >= n_b), -1, rows * n_b + cols),
-                n_b * n_b, dev)
+        (self._l2g, self._bmap, self._int_src, self._int_dst,
+         self._boundary) = part_index_tensors(plan, 0, plan.P, dev)
+        self._imask = torch.as_tensor(plan.imask, dtype=self.jac_dtype, device=dev)
+        self._seg_b, self._seg_band, self._seg_dense = part_segment_sums(
+            plan, 0, plan.P, self.boundary_solver, dev)
 
     # -- the partitioned normal-equation pass -------------------------------
 
@@ -340,12 +426,7 @@ class BlockSchurSolver:
         damping ``lam`` (B,). Returns ``(d (B, n_vars) in the solve dtype,
         fail (B,), deg_j (B, n_constraints))``."""
         jt = self.jac_dtype
-        if (x.is_cuda and jt == torch.float32
-                and torch.get_float32_matmul_precision() != "highest"):
-            raise RuntimeError(
-                "BlockSchurSolver needs full float32 matrix products on the GPU: "
-                "TF32 (three decimal digits) keeps mixed precision from reaching "
-                "the 1e-8 residual; call torch.set_float32_matmul_precision('highest')")
+        require_full_f32(x.device, jt, "BlockSchurSolver")
         B = x.shape[0]
         m, n_b = self.m, self.n_b
         jtj, jtr, deg_j = self._partition_normal_eq(x)
@@ -359,24 +440,10 @@ class BlockSchurSolver:
         # reject-and-redamp cascade (newton.rs:96-99).
         lam_j = lam.to(jt)
         imask = self._imask
-        eye_m = torch.eye(m, dtype=jt, device=x.device)
-        # Unit diagonal on padded interior slots keeps A_pp SPD.
-        a_ii = (jtj[..., :m, :m]
-                + lam_j[:, None, None, None] * eye_m * imask[:, None, :]
-                + (1.0 - imask)[:, :, None] * eye_m)
-        a_ib = jtj[..., :m, m:]  # (B, P, m, kb)
-        a_bb = jtj[..., m:, m:]  # (B, P, kb, kb)
-        b_i = -jtr[..., :m]
-        b_b = -jtr[..., m:]
+        a_ii, a_ib, a_bb, b_i, b_b = damped_blocks(jtj, jtr, lam_j, imask, m)
 
         if n_b:
-            # One interior factorization per step: b_i packed beside A_ib,
-            # so u = A_ii^-1 b_i and W = A_ii^-1 A_ib come out of one
-            # multi-RHS solve, and d_i = u - W d_b needs no third solve.
-            packed = torch.cat([b_i[..., None], a_ib], dim=-1)
-            sol, fail_i = spd_solve_multi_batched(a_ii, packed)
-            u = sol[..., 0]
-            w_mat = sol[..., 1:]
+            u, w_mat, fail_i = interior_solve(a_ii, a_ib, b_i)
             rhs_contrib = b_b - torch.einsum("bpmk,bpm->bpk", a_ib, u)
             rhs = self._seg_b(rhs_contrib.reshape(B, -1))
             if self.boundary_solver == "cg":
@@ -429,7 +496,7 @@ class BlockSchurSolver:
         diag_s = self._seg_b(diag_local.reshape(B, -1)) + lam_j[:, None]
         minv = torch.where(diag_s > 0, 1.0 / diag_s, torch.ones_like(diag_s))
         tol = self.cg_tol * torch.sqrt(torch.sum(rhs * rhs, dim=-1))
-        return _pcg(s_matvec, rhs, minv, tol, self.cg_max_iters)
+        return _cg(s_matvec, rhs, None, tol, self.cg_max_iters, minv)
 
     # -- public solve ---------------------------------------------------------
 

@@ -284,7 +284,7 @@ def _cg(matvec, b: torch.Tensor, x0, tol, max_iters, minv_diag=None) -> torch.Te
     b - A x0), ``None`` for zeros (r0 = b); ``tol`` (the absolute tolerance
     on a lane's residual norm) and ``max_iters`` are scalars or per-lane
     (B,) tensors. ``minv_diag`` (B, n), when given, is the Jacobi
-    preconditioner's elementwise inverse (``parallel.hier._pcg``).
+    preconditioner's elementwise inverse (the JAX package's ``_pcg``).
 
     Each lane stops where its own ``lax.while_loop`` would (``|r|^2 >
     tol^2`` and fewer than ``max_iters`` trips, both strict): a trip

@@ -229,3 +229,21 @@ def test_horizontal_chain_matches_jax(args):
     for a, b in zip(tc, jc):
         assert [(i.kernel, i.var_ids, i.params) for i in a.lower()] == \
             [(i.kernel, i.var_ids, i.params) for i in b.lower()]
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_fleet_solver_threads_share_forward_mode(precision):
+    """Shards on distinct devices run in threads of their own (four CPU
+    device names stand in for four cards). The batched LM loop's Jacobian
+    pass is forward-mode AD, whose level is one per process: the threads
+    must take turns at it (``ops.kernels.jvp``), and the fleet then equals
+    one ``BatchSolver`` on the whole batch."""
+    cs, x0 = TF.horizontal_chain(20)
+    system = TC.compile_system(cs, len(x0))
+    xb = x0 + np.random.default_rng(9).normal(0, 1e-2, (64, len(x0)))
+    out = FleetSolver(system, devices=["cpu", "cpu:0", "cpu:1", "cpu:2"],
+                      precision=precision).solve(xb)
+    ref = BatchSolver(system, Config(), precision=precision, device="cpu").solve(
+        torch.as_tensor(xb))
+    for name in ("x", "iterations", "converged", "satisfied", "degenerate"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name

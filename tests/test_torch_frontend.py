@@ -287,6 +287,9 @@ def test_port_imports_no_jax():
         "import ezpz_tpu_torch.residual_viz, ezpz_tpu_torch.utils.debug\n"
         "import ezpz_tpu_torch.examples.basic, ezpz_tpu_torch.examples.parser\n"
         "import ezpz_tpu_torch.examples.scale\n"
+        "import ezpz_tpu_torch.parallel.dist, ezpz_tpu_torch.parallel.schur\n"
+        "import ezpz_tpu_torch.parallel.hier, ezpz_tpu_torch.launch\n"
+        "import ezpz_tpu_torch.dryrun, ezpz_tpu_torch.checkpoint\n"
         "ezpz_tpu_torch.native.load_fastparse(), ezpz_tpu_torch.native.load_fastdecomp()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ezpz_tpu.'))"
         " or m == 'ezpz_tpu']\n"
