@@ -232,24 +232,28 @@ def card_line() -> str:
 
 def ptxas_summary(log_path):
     """One line per kernel instantiation from nvcc's -Xptxas -v log:
-    registers, stack frame and spills."""
+    registers, static shared memory, stack frame and spills."""
     if not os.path.exists(log_path):
         return []
     out, name = [], None
     for line in open(log_path):
         m = re.search(r"Compiling entry function '.*?(fused|coarse)_(small|big)_kernel"
                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
-        b = re.search(r"Compiling entry function '.*?banded_spd_kernelI([fd])Li(\d+)E", line)
+        b = re.search(r"Compiling entry function '.*?banded_spd_(warp|lanes)_kernelI([fd])Li(\d+)E",
+                      line)
         if m:
             shape = f"<{m.group(3)},{m.group(4)}>" if m.group(3) else ""
             name = f"{m.group(1)}_{m.group(2)}_kernel{shape}"
         elif b:
-            name = f"banded_spd_kernel<{'float' if b.group(1) == 'f' else 'double'},{b.group(2)}>"
+            name = (f"banded_spd_{b.group(1)}_kernel<"
+                    f"{'float' if b.group(2) == 'f' else 'double'},{b.group(3)}>")
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
-            out.append(f"{name}: {regs} registers, {frame}")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {regs} registers, {smem.group(1) if smem else 0} bytes smem, "
+                       f"{frame}")
             name = None
     return out
 
@@ -1580,7 +1584,7 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
     against the PyTorch call that computes the same function on the dense
     matrix of the same band (``cholesky_ex`` + ``cholesky_solve``, the
     dense boundary's), in f32 and f64 (or ``dtypes``). Kernel and plain
-    version must agree within X_TOL (they are built to agree bit for bit)
+    version must agree bit for bit (the same operations in the same order)
     and the kernel's answer must be backward stable (BACKWARD_TOL); the
     library's backward error and its difference from the kernel are
     printed. Returns the record of the kernels line (f32's, if run)."""
@@ -1602,7 +1606,7 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
         bits = torch.equal(x, xr) and torch.equal(fail, failr)
         err = float((x - xr).abs().max())
         first = None if bits else int((x != xr).any(0).nonzero()[0])
-        if not torch.equal(fail, failr) or err > X_TOL or bool(fail.any()):
+        if not bits or bool(fail.any()):
             raise SystemExit(f"chip_smoke: {label} banded kernel differs from its plain "
                              f"version ({dtype}, n={n}: max|dx|={err!r}, first differing "
                              f"row {first}, fails {int(fail.sum())} / {int(failr.sum())})")
@@ -1630,7 +1634,8 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
         kbe, lbe = band_backward_error(Ab, x, b), band_backward_error(Ab, lx, b)
         bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
         print(f"{label} banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
-              f"(CUDA events, median of {REPS}, wrapper's transposes included), plain "
+              f"(CUDA events, median of {REPS}), {kms * 1e3 / n!r} us per row, "
+              f"{kms * 1e6 / (n * B)!r} ns per row per lane; plain "
               f"version {plain_ms!r} ms (once, host clock), bit-equal {bits}; dense "
               f"cholesky_ex + cholesky_solve {lib_ms!r} ms ("
               f"{'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}); backward "
@@ -2097,6 +2102,11 @@ SHARDED_STRUCTURE = (2500, 36, 19992, 11)  # n_parts, n_interior, n_boundary, bw
 # at the default budget's end is printed; the f64 solve (exact steps) runs
 # at the default budget.
 SHARDED_MAX_ITERATIONS = 60
+# The mixed banded run's trips and max|r| after trip 35 as recorded on one
+# NVIDIA H100 80GB HBM3 (torch 2.11.0+cu128): the banded kernel is bit-equal
+# to its plain version, so a kernel change that keeps that leaves them as
+# they are (printed beside the run's own).
+SHARDED_TRIPS, SHARDED_TRIP35_MAX_R = 39, 2.2618739770052798e-08
 # The hub assembly of SHARDED_r03.json: 100,004 variables, 2,501 parts.
 HUB_LINES, HUB_CLUSTER = 25_001, 10
 SHARDED_REPS = 3
@@ -2194,6 +2204,12 @@ def phase10ab(dev, card):
     sharded_report(f"phase10a witness: sharded chain (dense, mixed, "
                    f"{SHARDED_MAX_ITERATIONS}-trip budget)", rep_dense, chain, len(x0), dev,
                    card)
+    hist = rep_a["history"]
+    print(f"phase10a mixed banded trajectory as recorded ({SHARDED_TRIPS} trips, "
+          f"{SHARDED_TRIP35_MAX_R!r} after trip 35): "
+          f"{len(hist) == SHARDED_TRIPS and hist[34] == SHARDED_TRIP35_MAX_R} "
+          f"({len(hist)} trips, {hist[34] if len(hist) >= 35 else None!r} after trip 35)",
+          flush=True)
     if rep_f64["banded_launches"] == 0:
         raise SystemExit("chip_smoke: phase10a f64 did not launch the banded kernel")
     band, rhs = rep_a["captured"]

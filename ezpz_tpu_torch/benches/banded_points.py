@@ -1,0 +1,226 @@
+"""Time the banded SPD kernel (``ops/banded.banded_spd_solve`` on the card)
+at a few operating points, beside its bound and the dense library solve.
+
+For each point ``B:n:bw`` (lanes, rows, half-bandwidth) and each dtype it
+builds seeded, diagonally dominant bands (``make_band``), calls the kernel
+once to warm it, then times REPS calls with CUDA events and prints the
+median: ms per call, us per row (time / n), ns per row per lane
+(time / (n B)), the bound (band, right-hand side and x moved once against
+the factor's and both substitutions' operations, the formula of
+``chip_smoke.banded_bound_ms``), the dense ``cholesky_ex`` +
+``cholesky_solve`` of the same matrices where they fit, and a hash of x
+(two trees' kernels must agree bit for bit). Where the wrapper routes by
+batch size (``banded_spd.LANES_MIN_BATCH``) both kernels are timed as
+well. It only uses the wrapper's public call, so it also runs against
+older checkouts.
+
+    python -m ezpz_tpu_torch.benches.banded_points                      # the card
+    python -m ezpz_tpu_torch.benches.banded_points --points 1024:952:11 --dtypes f64
+    python -m ezpz_tpu_torch.benches.banded_points --cpu --points 3:20:2  # plain version
+
+``--cpu`` runs the plain version on the host CPU with the host clock; its
+times are the CPU's, not the card's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+DEFAULT_POINTS = ("1024:952:11", "1:19992:11", "8192:952:11")
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+# The H100's published rates (NVIDIA's data sheet, SXM): HBM bytes/s and
+# f32 / f64 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
+# The dense library solve is timed only when its matrix and factor fit.
+LIBRARY_MAX_BYTES = 24 << 30
+
+
+def make_band(B: int, n: int, bw: int, dtype=torch.float64, device="cpu", seed: int = 0):
+    """Lower bands ``Ab`` (B, n, bw+1) of symmetric diagonally dominant
+    matrices, as ``tests/test_torch_cuda.py``'s ``_spd_bands`` makes them
+    (off-diagonal entries uniform in [-1, 1], the diagonal 2 bw + 1; zero
+    left of the first column), and right-hand sides ``b`` (B, n) uniform
+    in [-1, 1], from numpy's generator with ``seed``."""
+    rng = np.random.default_rng(seed)
+    Ab = rng.uniform(-1.0, 1.0, (B, n, bw + 1))
+    Ab[:, :, bw] = 2.0 * bw + 1.0
+    rows = np.arange(n)[:, None]
+    Ab[:, (rows - bw + np.arange(bw + 1)[None, :]) < 0] = 0.0
+    b = rng.uniform(-1.0, 1.0, (B, n))
+    return (torch.as_tensor(Ab, dtype=dtype, device=device),
+            torch.as_tensor(b, dtype=dtype, device=device))
+
+
+def bound_ms(B: int, n: int, bw: int, itemsize: int):
+    """(ms, "bytes" or "operations"): ``chip_smoke.banded_bound_ms``."""
+    nbytes = B * n * (bw + 3) * itemsize + B
+    ops = B * n * (bw * bw + 7 * bw + 6)
+    rate = F32_OPS_PER_S if itemsize == 4 else F64_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dense_of(Ab: torch.Tensor) -> torch.Tensor:
+    """The dense symmetric matrices (B, n, n) of lower bands ``Ab``."""
+    B, n, bwp1 = Ab.shape
+    bw = bwp1 - 1
+    dense = torch.zeros((B, n, n), dtype=Ab.dtype, device=Ab.device)
+    rows = torch.arange(n, device=Ab.device)[:, None]
+    cols = rows - bw + torch.arange(bwp1, device=Ab.device)[None, :]
+    keep = (cols >= 0).expand(n, bwp1)
+    r_idx, c_idx = rows.expand(n, bwp1)[keep], cols[keep]
+    dense[:, r_idx, c_idx] = Ab[:, keep]
+    dense[:, c_idx, r_idx] = Ab[:, keep]
+    return dense
+
+
+def events_ms(fn, reps: int) -> float:
+    """Median ms of ``fn()`` between two CUDA events over ``reps`` calls,
+    after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def parse_point(text: str):
+    parts = text.split(":")
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError(f"point {text!r} is not B:n:bw")
+    B, n, bw = (int(p) for p in parts)
+    if B < 1 or n < 1 or bw < 0:
+        raise argparse.ArgumentTypeError(f"point {text!r} needs B >= 1, n >= 1, bw >= 0")
+    return B, n, bw
+
+
+def measure(B, n, bw, dtype, device, reps, seed):
+    """The records of one point and dtype: one per route on the card, one
+    for the plain version on the CPU."""
+    from ezpz_tpu_torch.ops import banded, banded_spd
+
+    Ab, b = make_band(B, n, bw, dtype, device, seed)
+    bound, bound_by = bound_ms(B, n, bw, Ab.element_size())
+    base = dict(B=B, n=n, bw=bw, dtype=str(dtype).replace("torch.", ""),
+                bound_ms=bound, bound_by=bound_by)
+    if device == "cpu":
+        x, fail = banded.banded_spd_solve(Ab, b)
+        ms = host_ms(lambda: banded.banded_spd_solve(Ab, b), reps)
+        return [dict(base, route="plain version, CPU host clock", ms=ms,
+                     fails=int(fail.sum()),
+                     x_sha256=hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16])]
+    # Both of the wrapper's kernels where it routes by batch size: a
+    # crossover above B takes the warp kernel, one of 1 the lane kernel.
+    cut = getattr(banded_spd, "LANES_MIN_BATCH", None)
+    routes = {"default": cut}
+    if cut is not None:
+        routes.update(warp=B + 1, lanes=1)
+    out = []
+    lib_ms = None
+    dense_bytes = 2 * B * n * n * Ab.element_size()
+    if dense_bytes <= LIBRARY_MAX_BYTES:
+        dense = dense_of(Ab)
+
+        def library():
+            L, _info = torch.linalg.cholesky_ex(dense)
+            return torch.cholesky_solve(b[..., None], L)
+
+        lib_ms = events_ms(library, reps)
+        del dense
+        torch.cuda.empty_cache()
+    def call():
+        return banded.banded_spd_solve(Ab, b)
+
+    for route, route_cut in routes.items():
+        if cut is not None:
+            banded_spd.LANES_MIN_BATCH = route_cut
+        try:
+            x, fail = call()
+            torch.cuda.synchronize()
+            ms = events_ms(call, reps)
+        finally:
+            if cut is not None:
+                banded_spd.LANES_MIN_BATCH = cut
+        out.append(dict(base, route=route, ms=ms, us_per_row=ms * 1e3 / n,
+                        ns_per_row_per_lane=ms * 1e6 / (n * B), library_ms=lib_ms,
+                        library_note=None if lib_ms is not None else
+                        f"not timed: dense matrices and factor need {dense_bytes} bytes",
+                        fails=int(fail.sum()),
+                        x_sha256=hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]))
+    return out
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--points", nargs="+", type=parse_point,
+                    default=[parse_point(p) for p in DEFAULT_POINTS],
+                    help="operating points B:n:bw (default: %(default)s)")
+    ap.add_argument("--dtypes", default="f32,f64", help="comma-separated f32, f64")
+    ap.add_argument("--reps", type=int, default=5, help="timed calls per median")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu", action="store_true",
+                    help="the plain version on the host CPU (host clock)")
+    args = ap.parse_args(argv)
+    dtypes = [DTYPES[d] for d in args.dtypes.split(",")]
+    if args.cpu:
+        device, card = "cpu", "host CPU (plain version)"
+    else:
+        if not torch.cuda.is_available():
+            raise SystemExit("banded_points: no CUDA device (use --cpu for the plain version)")
+        device, card = "cuda", card_line()
+    print(f"banded_points on {card}; torch {torch.__version__}", flush=True)
+    records = []
+    for B, n, bw in args.points:
+        for dtype in dtypes:
+            for rec in measure(B, n, bw, dtype, device, args.reps, args.seed):
+                rec["card"] = card
+                records.append(rec)
+                lib = (f"{rec['library_ms']!r} ms" if rec.get("library_ms") is not None
+                       else rec.get("library_note", "not timed"))
+                per_row = (f", {rec['us_per_row']!r} us per row, "
+                           f"{rec['ns_per_row_per_lane']!r} ns per row per lane"
+                           if "us_per_row" in rec else "")
+                print(f"B={B} n={n} bw={bw} {rec['dtype']} [{rec['route']}]: "
+                      f"{rec['ms']!r} ms (median of {args.reps}){per_row}; H100 bound "
+                      f"{rec['bound_ms']!r} ms ({rec['bound_by']}); dense cholesky_ex + "
+                      f"cholesky_solve {lib}; fails {rec['fails']}; x sha256 "
+                      f"{rec['x_sha256']}; card: {card}", flush=True)
+    print(json.dumps({"banded_points": records}), flush=True)
+    return records
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -42,8 +42,20 @@ NVCC_FLAGS = (
 # in csrc/fleet_common.cuh.
 SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
 
-# Register capacities of the banded SPD kernel (CAPS in csrc/banded_spd.cu).
+# Capacities of the banded SPD kernel (CAPS in csrc/banded_spd.cu), its
+# lanes (warps) per block (WARPS) and its band rows staged ahead (STAGE).
 BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
+BANDED_WARPS = 4
+BANDED_STAGE_ROWS = 4
+
+
+def banded_smem_bytes(cap: int, itemsize: int) -> int:
+    """Shared memory of one block of the banded warp kernel of capacity
+    ``cap`` (row_stride and warp_elems in csrc/banded_spd.cu): per warp, a
+    ring of cap + 1 factor rows and BANDED_STAGE_ROWS staged rows, each
+    padded to a stride of cap + 2 (odd cap: cap + 3) elements."""
+    stride = cap + 2 if cap % 2 == 0 else cap + 3
+    return BANDED_WARPS * (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
 
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -185,20 +197,38 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_cuda_error_string.restype = ctypes.c_char_p
     lib.ezpz_cuda_error_string.argtypes = [i]
     lib.ezpz_banded_spd.restype = i
-    lib.ezpz_banded_spd.argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
-                                    i, i, i, i, p]     # B, n, bw, m, stream
+    lib.ezpz_banded_spd.argtypes = [i, i, p, p, p, p, p,  # f64, lanes, band, rhs, factor, x, fail
+                                    i, i, i, i, p]        # B, n, bw, m, stream
     lib.ezpz_banded_capacity.restype = i
     lib.ezpz_banded_capacity.argtypes = [i]
+    lib.ezpz_banded_warps.restype = i
+    lib.ezpz_banded_warps.argtypes = []
+    lib.ezpz_banded_smem_bytes.restype = i
+    lib.ezpz_banded_smem_bytes.argtypes = [i, i]
     if compiled_shapes(lib) != SMALL_SHAPES:
         raise RuntimeError(f"library shapes {compiled_shapes(lib)} != {SMALL_SHAPES}")
     if banded_capacities(lib) != BANDED_CAPACITIES:
         raise RuntimeError(f"library band capacities {banded_capacities(lib)} != "
                            f"{BANDED_CAPACITIES}")
+    if banded_plan(lib) != banded_plan():
+        raise RuntimeError(f"library banded plan {banded_plan(lib)} != {banded_plan()}")
     return lib
 
 
+def banded_plan(lib=None) -> tuple:
+    """(warps per block, {(capacity, itemsize): shared bytes per block}) of
+    the banded warp kernel: the library's report, or this module's mirror
+    when ``lib`` is None."""
+    if lib is None:
+        return BANDED_WARPS, {(cap, size): banded_smem_bytes(cap, size)
+                              for cap in BANDED_CAPACITIES for size in (4, 8)}
+    return lib.ezpz_banded_warps(), {
+        (cap, size): lib.ezpz_banded_smem_bytes(k, int(size == 8))
+        for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
+
+
 def banded_capacities(lib) -> tuple:
-    """The register capacities of the banded kernel the library reports."""
+    """The capacities of the banded kernel the library reports."""
     out = []
     while (cap := lib.ezpz_banded_capacity(len(out))) >= 0:
         out.append(cap)

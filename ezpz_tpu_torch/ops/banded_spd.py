@@ -3,14 +3,16 @@
 Replaces the row-per-step ``lax.scan`` passes of
 ``ezpz_tpu.ops.banded.banded_cholesky`` and ``banded_solve``: one launch
 (``csrc/banded_spd.cu``) factors, forward- and back-substitutes B banded
-systems, one thread per lane. Its plain version is
+systems, one warp per lane. Its plain version is
 ``ops.banded.banded_spd_reference``, and ``ops.banded.banded_spd_solve``
 dispatches between the two by device.
 
-The kernel reads lane-fastest buffers, (row, band entry, lane): the wrapper
-transposes the (B, n, bw+1) band and the right-hand sides into that layout
-and the solution back, allocates the factor's scratch, launches on the
-current stream and raises on a refused launch. Bands up to
+The warp kernel reads the callers' (B, n, bw+1) band and (B, n, m)
+right-hand sides as they are; the one-thread-per-lane kernel, the route of
+batches of at least ``LANES_MIN_BATCH`` lanes, reads lane-fastest buffers,
+(row, band entry, lane), into which the wrapper transposes. The wrapper
+allocates the factor's scratch, launches on the current stream and raises
+on a refused launch. Bands up to
 ``_build.BANDED_CAPACITIES[-1]`` (32) wide run; a wider one raises
 ``NotImplementedError``.
 """
@@ -28,12 +30,27 @@ from . import _build
 LAUNCHES = 0
 
 
+# Batches of at least this many lanes take the one-thread-per-lane kernel.
+# The crossover measured on one NVIDIA H100 80GB HBM3 at 700 W (n = 952,
+# bw = 11, benches/banded_points.py): in f32 the warp kernel is faster up
+# to 3,072 lanes and the two tie at 4,096; in f64 they tie at 3,072; from
+# 4,096 lanes to 16,384 the lane kernel is faster (at 8,192: 3.4 against
+# 5.2 ms in f32, 4.6 against 8.6 ms in f64).
+LANES_MIN_BATCH = 4096
+
+
+def route_for(B: int) -> str:
+    """The kernel a batch of ``B`` lanes takes: "warp" or "lanes"."""
+    return "lanes" if B >= LANES_MIN_BATCH else "warp"
+
+
 def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     """The kernel on CUDA ``Ab`` (B, n, bw+1) and ``b`` (B, n) or (B, n, m),
     both float32 or both float64: returns ``(x, fail (B,) bool)`` as
-    ``ops.banded.banded_spd_reference`` does. Raises when the inputs are
-    not on a CUDA device, the band is wider than the kernel's largest
-    capacity, ``nvcc`` or the build fails, or the launch is refused."""
+    ``ops.banded.banded_spd_reference`` does, by the kernel ``route_for(B)``
+    names. Raises when the inputs are not on a CUDA device, the band is
+    wider than the kernel's largest capacity, ``nvcc`` or the build fails,
+    or the launch is refused."""
     if Ab.device.type != "cuda" or b.device != Ab.device:
         raise ValueError(f"banded_spd_cuda takes CUDA tensors on one device, got "
                          f"{Ab.device} and {b.device}")
@@ -52,19 +69,26 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     fail = torch.zeros((B,), dtype=torch.bool, device=Ab.device)
     if B == 0 or n == 0 or m == 0:
         return torch.zeros_like(b), fail
-    ab_t = Ab.permute(1, 2, 0).contiguous()
-    rhs_t = b.reshape(B, n, m).permute(1, 2, 0).contiguous()
-    lb_t = torch.empty_like(ab_t)
-    x_t = torch.empty_like(rhs_t)
+    lanes = route_for(B) == "lanes"
+    if lanes:
+        ab_k = Ab.permute(1, 2, 0).contiguous()
+        rhs_k = b.reshape(B, n, m).permute(1, 2, 0).contiguous()
+    else:
+        ab_k, rhs_k = Ab.contiguous(), b.reshape(B, n, m).contiguous()
+    lb_k = torch.empty_like(ab_k)
+    x_k = torch.empty_like(rhs_k)
     lib = _build.load_library()
     with torch.cuda.device(Ab.device):
         stream = torch.cuda.current_stream(Ab.device).cuda_stream
-        err = lib.ezpz_banded_spd(int(Ab.dtype == torch.float64), ab_t.data_ptr(),
-                                  rhs_t.data_ptr(), lb_t.data_ptr(), x_t.data_ptr(),
-                                  fail.data_ptr(), B, n, bw, m, ctypes.c_void_p(stream))
+        err = lib.ezpz_banded_spd(int(Ab.dtype == torch.float64), int(lanes),
+                                  ab_k.data_ptr(), rhs_k.data_ptr(), lb_k.data_ptr(),
+                                  x_k.data_ptr(), fail.data_ptr(), B, n, bw, m,
+                                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"banded_spd kernel launch failed: cudaError {err} "
                            f"({_build.error_string(lib, err)})")
     _build.count_launches(__name__, 1)
-    debug.check_outputs("the banded_spd kernel", x_t)
-    return x_t.permute(2, 0, 1).reshape(b.shape), fail
+    debug.check_outputs("the banded_spd kernel", x_k)
+    if lanes:
+        x_k = x_k.permute(2, 0, 1)
+    return x_k.reshape(b.shape), fail

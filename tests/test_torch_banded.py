@@ -38,7 +38,7 @@ from ezpz_tpu.models.compiled import compile_system as j_compile_system
 from ezpz_tpu.ops import banded as JBd
 from ezpz_tpu_torch.models.compiled import from_reference
 from ezpz_tpu_torch.ops import banded as TBd
-from ezpz_tpu_torch.ops import banded_spd
+from ezpz_tpu_torch.ops import _build, banded_spd
 from ezpz_tpu_torch.ops.linalg import spd_solve
 
 sys.path.insert(0, os.path.join(
@@ -205,3 +205,80 @@ def test_cpu_band_takes_the_plain_version(monkeypatch):
 def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         banded_spd.banded_spd_cuda(torch.zeros((1, 3, 2)), torch.zeros((1, 3)))
+
+
+@pytest.mark.parametrize("cap", _build.BANDED_CAPACITIES)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_banded_plan_fits_a_block(cap, itemsize):
+    """Every capacity's warp kernel, in f32 and f64, holds its rings in one
+    block's shared memory: within the H100's 227 KB, and within the 48 KB
+    of static shared memory the kernel declares (beyond it the build would
+    need the opt-in attribute); and rows wide enough for the band and one
+    right-hand-side value, at an odd stride minus one."""
+    nbytes = _build.banded_smem_bytes(cap, itemsize)
+    assert nbytes <= 232_448 and nbytes <= 48 * 1024
+    rows = cap + 1 + _build.BANDED_STAGE_ROWS
+    stride = nbytes // (_build.BANDED_WARPS * rows * itemsize)
+    assert stride * _build.BANDED_WARPS * rows * itemsize == nbytes
+    assert stride >= cap + 2 and (stride - 1) % 2 == 1
+
+
+def test_banded_points_help():
+    """The timing script's command line parses (``--help`` exits 0)."""
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-m", "ezpz_tpu_torch.benches.banded_points",
+                          "--help"], capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode == 0 and "--points" in out.stdout
+
+
+def test_banded_points_band_builder():
+    """``make_band`` gives seeded, diagonally dominant SPD bands with zeros
+    left of the first column, the layout ``dense_to_band`` gives."""
+    from ezpz_tpu_torch.benches.banded_points import dense_of, make_band
+
+    Ab, b = make_band(3, 9, 4, seed=2)
+    Ab2, b2 = make_band(3, 9, 4, seed=2)
+    assert torch.equal(Ab, Ab2) and torch.equal(b, b2)
+    assert Ab.shape == (3, 9, 5) and b.shape == (3, 9) and Ab.dtype == torch.float64
+    dense = dense_of(Ab)
+    assert torch.equal(TBd.dense_to_band(dense, 4), Ab)
+    assert torch.equal(dense, dense.transpose(1, 2))
+    off = dense.abs().sum(-1) - dense.diagonal(dim1=1, dim2=2).abs()
+    assert bool((dense.diagonal(dim1=1, dim2=2) > off).all())
+    x, fail = TBd.banded_spd_reference(Ab, b)
+    assert not fail.any()
+    np.testing.assert_allclose(np.linalg.solve(dense.numpy(), b.numpy()[..., None])[..., 0], x.numpy(),
+                               rtol=0, atol=1e-12)
+
+
+def test_banded_points_cpu_point():
+    """A tiny point through the plain version on the CPU: one record per
+    dtype, with the H100 bound of ``chip_smoke.banded_bound_ms``'s formula."""
+    from ezpz_tpu_torch.benches import banded_points
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    recs = banded_points.main(["--cpu", "--points", "2:7:3", "--reps", "1"])
+    assert [(r["B"], r["n"], r["bw"], r["dtype"], r["fails"]) for r in recs] == [
+        (2, 7, 3, "float32", 0), (2, 7, 3, "float64", 0)]
+    for rec, itemsize in zip(recs, (4, 8)):
+        assert (rec["bound_ms"], rec["bound_by"]) == chip_smoke.banded_bound_ms(2, 7, 3, itemsize)
+    for point in ((1024, 952, 11), (1, 19992, 11), (8192, 952, 11)):
+        for itemsize in (4, 8):
+            assert banded_points.bound_ms(*point, itemsize) == chip_smoke.banded_bound_ms(
+                *point, itemsize)
+
+
+def test_banded_route_by_batch():
+    """Batches below ``LANES_MIN_BATCH`` take the warp kernel, the rest the
+    one-thread-per-lane kernel."""
+    cut = banded_spd.LANES_MIN_BATCH
+    assert [banded_spd.route_for(B) for B in (1, 1024, cut - 1, cut, 4 * cut)] == [
+        "warp", "warp", "warp", "lanes", "lanes"]
