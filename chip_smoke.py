@@ -116,6 +116,20 @@ Phases (any failure exits non-zero before the result line):
    alone on the first boundary solve's band against its plain version and
    the dense ``cholesky_ex`` + ``cholesky_solve`` of the same matrix, in
    f32 and f64;
+8w. a boundary band wider than 32 (``phase8w``): the same chain and
+   copies with every 4th of the 120 parts' variables moved to the part 3
+   to its right (``moved_parts``), so that ``boundary_solver="auto"``
+   resolves to banded at n_b = 952, bw = 35, past the lane kernel's 32:
+   mixed and f64, counts from zero, phase 8's gate, the warp kernel's
+   route launched, mixed and f64 within ``COUPLED_X_TOL``; a world-1
+   ``ShardedBlockSchurSolver`` (B = 1) on the same parts, converged and
+   satisfied, its own launches; the kernel alone on the mixed run's first
+   band and the sharded run's (``phase8_kernel``: bit-equal to the plain
+   version in f32 and f64, backward error, the library, the bound); the
+   general-width kernel on the same band, bit-equal to the warp kernel and
+   timed beside it; then every 8th part moved 7 (bw = 67) in mixed through
+   the general-width kernel with the same gate, and that kernel alone on
+   the run's first band (``phase8_kernel`` again);
 9. the single-device remainder (``phase9``):
    (a) ``parallel.FleetSolver`` over every visible card on the main path
    (the massive fixture x 8192, both buckets, mixed + fused): counts from
@@ -183,9 +197,13 @@ bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
 counted from this run's inputs and iteration counts). No single PyTorch
 call computes an LM fleet solve, so the fleet kernels' ``library_ms`` is
 null; the banded kernel's is the dense Cholesky factorization and solve
-of the same matrix. The last line is ``{"ok": true, "device": {...}}``.
+of the same matrix. The banded kernel's wide routes are records of their
+own: ``banded_spd_wide`` (the warp kernel's capacity 48 at phase 8w's
+band; launches of its mixed, f64 and sharded runs) and
+``banded_spd_general`` (at the bw = 67 run's band; its launches). The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -241,12 +259,15 @@ def ptxas_summary(log_path):
                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
         b = re.search(r"Compiling entry function '.*?banded_spd_(warp|lanes)_kernelI([fd])Li(\d+)E",
                       line)
+        g = re.search(r"Compiling entry function '.*?banded_spd_general_kernelI([fd])E", line)
         if m:
             shape = f"<{m.group(3)},{m.group(4)}>" if m.group(3) else ""
             name = f"{m.group(1)}_{m.group(2)}_kernel{shape}"
         elif b:
             name = (f"banded_spd_{b.group(1)}_kernel<"
                     f"{'float' if b.group(2) == 'f' else 'double'},{b.group(3)}>")
+        elif g:
+            name = f"banded_spd_general_kernel<{'float' if g.group(1) == 'f' else 'double'}>"
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
@@ -1577,7 +1598,7 @@ def band_backward_error(Ab, x, b) -> float:
 BACKWARD_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-13}
 
 
-def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
+def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=()):
     """The banded kernel alone at the operating point's band (the first
     boundary solve of a main-path run): against its plain version on the
     card at full size (once: a chain of ~n (bw^2 + 3 bw) launches), and
@@ -1587,7 +1608,12 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
     version must agree bit for bit (the same operations in the same order)
     and the kernel's answer must be backward stable (BACKWARD_TOL); the
     library's backward error and its difference from the kernel are
-    printed. Returns the record of the kernels line (f32's, if run)."""
+    printed. ``also`` holds more (band, rhs) pairs of the same n and bw
+    (another call site's first band): the kernel solves each at its own
+    batch, and the plain version takes their lanes beside the band's in
+    its one call (its lanes are independent elementwise chains, so a
+    lane's answer does not depend on the others). Returns the record of
+    the kernels line (f32's, if run), timed on ``band``."""
     import torch
 
     from ezpz_tpu_torch.ops import banded
@@ -1597,10 +1623,12 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
     rec = None
     for dtype in dtypes or (torch.float32, torch.float64):
         Ab, b = band.to(dtype), rhs.to(dtype)
-        x, fail = banded.banded_spd_solve(Ab, b)
+        pairs = [(Ab, b)] + [(a.to(dtype), r.to(dtype)) for a, r in also]
+        outs = [banded.banded_spd_solve(a, r) for a, r in pairs]
+        x, fail = (torch.cat(v) for v in zip(*outs))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        xr, failr = banded.banded_spd_reference(Ab, b)
+        xr, failr = banded.banded_spd_reference(*(torch.cat(v) for v in zip(*pairs)))
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         bits = torch.equal(x, xr) and torch.equal(fail, failr)
@@ -1610,6 +1638,7 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
             raise SystemExit(f"chip_smoke: {label} banded kernel differs from its plain "
                              f"version ({dtype}, n={n}: max|dx|={err!r}, first differing "
                              f"row {first}, fails {int(fail.sum())} / {int(failr.sum())})")
+        x = x[:B]
         kms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
         dense = torch.zeros((B, n, n), dtype=dtype, device=band.device)
         rows = torch.arange(n, device=band.device)[:, None]
@@ -1635,8 +1664,9 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
         bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
         print(f"{label} banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
               f"(CUDA events, median of {REPS}), {kms * 1e3 / n!r} us per row, "
-              f"{kms * 1e6 / (n * B)!r} ns per row per lane; plain "
-              f"version {plain_ms!r} ms (once, host clock), bit-equal {bits}; dense "
+              f"{kms * 1e6 / (n * B)!r} ns per row per lane; plain version "
+              f"{plain_ms!r} ms (once, host clock, {xr.shape[0]} lanes: also batches "
+              f"{[a.shape[0] for a, _ in also]}), bit-equal {bits}; dense "
               f"cholesky_ex + cholesky_solve {lib_ms!r} ms ("
               f"{'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}); backward "
               f"error kernel {kbe!r}, library {lbe!r}; relative difference library - "
@@ -1649,6 +1679,27 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None):
             rec = dict(max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=lib_ms)
     return rec
+
+
+@contextlib.contextmanager
+def first_band(module):
+    """Within the block, ``module.banded_spd_solve`` (a caller's import of
+    ``ops.banded.banded_spd_solve``) keeps a copy of its first call's band
+    and right-hand side in the list it yields."""
+    from ezpz_tpu_torch.ops import banded
+
+    captured = []
+
+    def capture(band, rhs):
+        if not captured:
+            captured.append((band.clone(), rhs.clone()))
+        return banded.banded_spd_solve(band, rhs)
+
+    module.banded_spd_solve = capture
+    try:
+        yield captured
+    finally:
+        module.banded_spd_solve = banded.banded_spd_solve
 
 
 def phase8(dev, card):
@@ -1675,11 +1726,11 @@ def phase8(dev, card):
     solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
 
     # The main-path run: counts from zero, gate on its answers.
-    banded_spd.LAUNCHES = 0
+    banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
     torch.cuda.reset_peak_memory_stats()
     res, sat = solver.solve_batch(x0s)
     torch.cuda.synchronize()
-    launches = banded_spd.LAUNCHES
+    launches = sum(banded_spd.LAUNCHES.values())
     peak = torch.cuda.max_memory_allocated()
     r, _deg = solver.system.residual_and_flags(res.x)
     rmax = float(r.abs().max())
@@ -1694,18 +1745,8 @@ def phase8(dev, card):
 
     # A second identical run (capturing the first boundary solve's inputs):
     # equal bit for bit.
-    captured = []
-
-    def capture(band, rhs):
-        if not captured:
-            captured.append((band.clone(), rhs.clone()))
-        return banded.banded_spd_solve(band, rhs)
-
-    block_schur.banded_spd_solve = capture
-    try:
+    with first_band(block_schur) as captured:
         again, again_sat = solver.solve_batch(x0s)
-    finally:
-        block_schur.banded_spd_solve = banded.banded_spd_solve
     same = (torch.equal(again.x, res.x) and torch.equal(again.iterations, res.iterations)
             and torch.equal(again_sat, sat))
     print(f"phase8 second run bit-equal: {same}", flush=True)
@@ -1762,6 +1803,161 @@ def phase8(dev, card):
     rec = phase8_kernel(*captured[0], card)
     print(f"phase8 ok: {time.perf_counter() - t_start:.1f} s", flush=True)
     return dict(launches=launches, **rec)
+
+
+# Phase 8w: a boundary band wider than 32. Every 4th part's variables
+# go to the part 3 to its right (WIDE_MAP, ``coupled_bench.moved_parts``),
+# which widens the chain's boundary band past the lane kernel's 32: "auto"
+# resolves it to banded (both packages' rule has no cap) and the warp
+# kernel's capacity 48 runs. GENERAL_MAP (every 8th part to the part 7 to
+# its right) widens it past the warp kernel's 64: the general-width kernel
+# runs on the main path.
+WIDE_MAP = (4, 3)
+WIDE_STRUCTURE = (952, 35, "banded")
+GENERAL_MAP = (8, 7)
+GENERAL_STRUCTURE = (952, 67, "banded")
+
+
+def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label, route):
+    """One ``BlockSchurSolver(part_of_var=..., boundary_solver="auto")``
+    main-path run on the card, counts from zero, with phase 8's gate;
+    returns (result, the first boundary solve's band and rhs, the route's
+    launches, the solver)."""
+    import torch
+
+    from ezpz_tpu_torch.ops import banded_spd
+    from ezpz_tpu_torch.parallel import BlockSchurSolver, block_schur
+
+    solver = BlockSchurSolver(cons, n, part_of_var=part_of_var, boundary_solver="auto",
+                              precision=precision, device=dev)
+    got = (solver.n_b, solver.band_bw, solver.boundary_solver)
+    print(f"{label} structure: P={solver.P} m={solver.m} kb={solver.kb} n_b={got[0]} "
+          f"bw={got[1]} auto -> {got[2]}", flush=True)
+    if got != structure:
+        raise SystemExit(f"chip_smoke: {label} structure {got} is not {structure}")
+    solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
+    banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+    with first_band(block_schur) as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, sat = solver.solve_batch(x0s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    routes = dict(banded_spd.LAUNCHES)
+    r, _deg = solver.system.residual_and_flags(res.x)
+    rmax = float(r.abs().max())
+    conv, sat_all = bool(res.converged.all()), bool(sat.all())
+    print(f"{label} gate: {len(x0s)} copies, converged={conv} satisfied={sat_all} "
+          f"f64_residual_max={rmax!r} iterations {int(res.iterations.min())}-"
+          f"{int(res.iterations.max())}; {wall * 1e3!r} ms (host clock, once); banded "
+          f"launches by route {routes}; card: {card}", flush=True)
+    if not (conv and sat_all and rmax <= 1e-8) or routes[route] == 0:
+        raise SystemExit(f"chip_smoke: {label} failed its gate or never launched the "
+                         f"banded kernel's {route} route")
+    return res, captured[0], routes[route], solver
+
+
+def general_on(band, card):
+    """The warp tier's reason to exist: the general-width kernel on the warp
+    tier's band (``route_for`` pointed at it for these calls only), equal
+    bit for bit to the warp kernel's answer and timed beside it, in f32 and
+    f64."""
+    import torch
+
+    from ezpz_tpu_torch.ops import banded, banded_spd
+
+    for dtype in (torch.float32, torch.float64):
+        Ab, b = band[0].to(dtype), band[1].to(dtype)
+        want = banded.banded_spd_solve(Ab, b)
+        warp_ms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
+        route_for = banded_spd.route_for
+        banded_spd.route_for = lambda _B, _bw: "general"
+        try:
+            got = banded.banded_spd_solve(Ab, b)
+            general_ms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
+        finally:
+            banded_spd.route_for = route_for
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"phase8w general kernel on the warp tier's band {dtype}: B={Ab.shape[0]} "
+              f"n={Ab.shape[1]} bw={Ab.shape[2] - 1}: {general_ms!r} ms against the warp "
+              f"kernel's {warp_ms!r} ms (CUDA events, median of {REPS}, one call each); "
+              f"bit-equal {same}; card: {card}", flush=True)
+        if not same:
+            raise SystemExit("chip_smoke: phase8w general and warp kernels differ")
+
+
+def phase8w(dev, card):
+    """A boundary band wider than 32 on the card: the 600-line chain, 1024
+    copies, 120 parts moved by WIDE_MAP (auto -> banded, n_b = 952, bw =
+    35) in mixed and f64 through the warp kernel's capacity 48, with phase
+    8's gate; a world-1 ``ShardedBlockSchurSolver`` solve on the same parts
+    (its own call site); the kernel alone on the mixed run's first band and
+    the sharded run's (``phase8_kernel``: bit for bit against the plain
+    version, the dense library and the bound); the general-width kernel on
+    that band too (``general_on``); then the chain moved by GENERAL_MAP (bw
+    = 67) through the general-width kernel, and that kernel alone on its
+    run's first band (``phase8_kernel``). Returns the kernels line's
+    records of the two wide routes."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.ops import banded_spd
+    from ezpz_tpu_torch.parallel import ShardedBlockSchurSolver, hier
+
+    t_start = time.perf_counter()
+    cons, x0 = coupled_bench.build_problem(COUPLED_LINES)
+    n = len(x0)
+    rng = np.random.default_rng(81)
+    x0s = torch.as_tensor(x0 + rng.normal(0.0, COUPLED_SIGMA, (COUPLED_COPIES, n)), device=dev)
+    q = coupled_bench.moved_parts(n, COUPLED_PARTS, *WIDE_MAP)
+    wide_launches, xs = 0, {}
+    for precision in ("mixed", "f64"):
+        res, band, launches, solver = wide_solve(
+            cons, n, x0s, q, WIDE_STRUCTURE, precision, dev, card, f"phase8w {precision}",
+            "warp")
+        wide_launches += launches
+        xs[precision] = res.x
+        if precision == "mixed":
+            wband = band
+    err = float((xs["mixed"] - xs["f64"]).abs().max())
+    print(f"phase8w mixed against f64: max|dx|={err!r} (tolerance {COUPLED_X_TOL!r})",
+          flush=True)
+    if err > COUPLED_X_TOL:
+        raise SystemExit("chip_smoke: phase8w mixed and f64 solutions differ")
+
+    # The hier.py call site: a world of one on the card, B = 1.
+    sharded = ShardedBlockSchurSolver(cons, n, part_of_var=q, boundary_solver="auto",
+                                      precision="mixed", device=dev)
+    banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+    with first_band(hier) as captured:
+        t0 = time.perf_counter()
+        out = sharded.solve(x0s[0].cpu().numpy())
+        wall = time.perf_counter() - t0
+    r, _deg = solver.system.residual_and_flags(
+        torch.as_tensor(out["x"], device=dev)[None])
+    rmax = float(r.abs().max())
+    hier_launches = banded_spd.LAUNCHES["warp"]
+    print(f"phase8w ShardedBlockSchurSolver (world 1, B = 1): n_b={sharded.n_b} "
+          f"bw={sharded.band_bw} {sharded.boundary_solver}; converged={out['converged']} "
+          f"satisfied={bool(out['satisfied'].all())} f64_residual_max={rmax!r} iterations "
+          f"{out['iterations']}; {wall * 1e3!r} ms (host clock, once); banded launches by "
+          f"route {banded_spd.LAUNCHES}", flush=True)
+    if (not (out["converged"] and out["satisfied"].all() and rmax <= 1e-8)
+            or hier_launches == 0 or not captured):
+        raise SystemExit("chip_smoke: phase8w sharded solve failed or never launched "
+                         "the banded kernel")
+    wide_launches += hier_launches
+    wide = phase8_kernel(*wband, card, label="phase8w warp tier", also=captured)
+    general_on(wband, card)
+
+    # The general-width kernel on the main path, then alone on its band.
+    g = coupled_bench.moved_parts(n, COUPLED_PARTS, *GENERAL_MAP)
+    _res, gband, general_launches, _solver = wide_solve(
+        cons, n, x0s, g, GENERAL_STRUCTURE, "mixed", dev, card, "phase8w general", "general")
+    general = phase8_kernel(*gband, card, label="phase8w general kernel")
+    print(f"phase8w ok: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return (dict(launches=wide_launches, **wide), dict(launches=general_launches, **general))
 
 
 # Phase 9: the single-device remainder.
@@ -2391,6 +2587,7 @@ def occupancy_lines():
 def main() -> int:
     import torch
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -2426,20 +2623,24 @@ def main() -> int:
     full, api_us = phase6(dev, card)
     phase7(dev, card, full, api_us)
     band = phase8(dev, card)
+    wide, general = phase8w(dev, card)
     phase9(dev, card)
     launches = phase10(dev, card)
     # The banded kernel's record is phase 8's operating point's; its
-    # launches are those of both of its main-path runs.
+    # launches are those of both of its main-path runs. Its wide routes
+    # (phase 8w) are records of their own.
     band = dict(band, launches=band["launches"] + launches)
     kernels = []
-    for name, rec, replaces in (
-            ("fused_fleet", fused, "ezpz_tpu/ops/pallas_fleet.py:898"),
-            ("coarse_fleet", coarse, "ezpz_tpu/ops/pallas_fleet.py:598"),
-            ("banded_spd", band, "ezpz_tpu/ops/banded.py:37")):
+    for name, rec, source, replaces in (
+            ("fused_fleet", fused, "fused_fleet", "ezpz_tpu/ops/pallas_fleet.py:898"),
+            ("coarse_fleet", coarse, "coarse_fleet", "ezpz_tpu/ops/pallas_fleet.py:598"),
+            ("banded_spd", band, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_wide", wide, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_general", general, "banded_spd", "ezpz_tpu/ops/banded.py:37")):
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"ezpz_tpu_torch/csrc/{name}.cu",
+            "source": f"ezpz_tpu_torch/csrc/{source}.cu",
             "replaces": replaces,
             "launches": rec["launches"],
             "max_abs_err": rec["max_abs_err"],
@@ -2449,6 +2650,7 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"),
         })
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

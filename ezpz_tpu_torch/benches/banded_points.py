@@ -130,7 +130,7 @@ def parse_point(text: str):
 def measure(B, n, bw, dtype, device, reps, seed):
     """The records of one point and dtype: one per route on the card, one
     for the plain version on the CPU."""
-    from ezpz_tpu_torch.ops import banded, banded_spd
+    from ezpz_tpu_torch.ops import _build, banded, banded_spd
 
     Ab, b = make_band(B, n, bw, dtype, device, seed)
     bound, bound_by = bound_ms(B, n, bw, Ab.element_size())
@@ -142,11 +142,12 @@ def measure(B, n, bw, dtype, device, reps, seed):
         return [dict(base, route="plain version, CPU host clock", ms=ms,
                      fails=int(fail.sum()),
                      x_sha256=hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16])]
-    # Both of the wrapper's kernels where it routes by batch size: a
-    # crossover above B takes the warp kernel, one of 1 the lane kernel.
+    # Both of the wrapper's kernels where it routes by batch size (bands
+    # up to the lane kernel's widest): a crossover above B takes the warp
+    # kernel, one of 1 the lane kernel.
     cut = getattr(banded_spd, "LANES_MIN_BATCH", None)
     routes = {"default": cut}
-    if cut is not None:
+    if cut is not None and bw <= getattr(_build, "BANDED_LANES_MAX_BW", 32):
         routes.update(warp=B + 1, lanes=1)
     out = []
     lib_ms = None

@@ -64,6 +64,16 @@ def build_problem(lines: int):
     return constraints, x0
 
 
+def moved_parts(n_vars: int, parts: int, every: int, shift: int) -> np.ndarray:
+    """A ``part_of_var`` map: contiguous parts, then every ``every``-th
+    part's variables given to the part ``shift`` to its right (the last
+    part at the end). On the chain this widens the boundary's band: every
+    4th part moved 3 gives a half-bandwidth of 35, every 8th moved 7 one of
+    67."""
+    p = np.minimum(np.arange(n_vars) * parts // n_vars, parts - 1)
+    return np.where(p % every == 0, np.minimum(p + shift, parts - 1), p)
+
+
 def _synced(dev, fn):
     """Host seconds of ``fn()`` up to the device's completion."""
     if dev.type == "cuda":

@@ -166,7 +166,7 @@ def run_cases(cases):
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             for rep in range(reps):
-                banded_spd.LAUNCHES = 0
+                banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
                 _sync(dev)
                 t1 = time.perf_counter()
                 out, cap = _run_step(solver, method, args,
@@ -176,7 +176,7 @@ def run_cases(cases):
                 captured = captured if cap is None else cap
                 digests.append(_digest(out))
             report = dict(out=out, counts=solver.counts(), ms=ms,
-                          banded_launches=banded_spd.LAUNCHES,
+                          banded_launches=sum(banded_spd.LAUNCHES.values()),
                           peak_bytes=(torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
                           captured=captured, setup_s=setup_s,

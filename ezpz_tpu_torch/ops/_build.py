@@ -42,32 +42,55 @@ NVCC_FLAGS = (
 # in csrc/fleet_common.cuh.
 SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
 
-# Capacities of the banded SPD kernel (CAPS in csrc/banded_spd.cu), its
-# lanes (warps) per block (WARPS) and its band rows staged ahead (STAGE).
-BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
+# Capacities of the banded SPD warp kernel (CAPS in csrc/banded_spd.cu),
+# its most lanes (warps) per block (WARPS), its band rows staged ahead
+# (STAGE), the static shared memory a block may declare (STATIC_SMEM), and
+# the widest band of the one-thread-per-lane kernel (LANES_MAX_CAP; the
+# library refuses a wider launch). Wider bands than the last capacity take
+# the general-width kernel.
+BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64)
 BANDED_WARPS = 4
 BANDED_STAGE_ROWS = 4
+BANDED_STATIC_SMEM = 48 * 1024
+BANDED_LANES_MAX_BW = 32
 
 
-def banded_smem_bytes(cap: int, itemsize: int) -> int:
-    """Shared memory of one block of the banded warp kernel of capacity
-    ``cap`` (row_stride and warp_elems in csrc/banded_spd.cu): per warp, a
+def banded_warp_bytes(cap: int, itemsize: int) -> int:
+    """Shared memory of one warp (lane) of the banded warp kernel of
+    capacity ``cap`` (row_stride and warp_elems in csrc/banded_spd.cu): a
     ring of cap + 1 factor rows and BANDED_STAGE_ROWS staged rows, each
     padded to a stride of cap + 2 (odd cap: cap + 3) elements."""
     stride = cap + 2 if cap % 2 == 0 else cap + 3
-    return BANDED_WARPS * (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
+    return (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
+
+
+def banded_warps(cap: int, itemsize: int) -> int:
+    """Lanes per block of the warp kernel of capacity ``cap`` (block_warps):
+    the most of BANDED_WARPS, 2 and 1 whose rings fit in
+    BANDED_STATIC_SMEM."""
+    per_warp = banded_warp_bytes(cap, itemsize)
+    return next((w for w in (BANDED_WARPS, 2) if w * per_warp <= BANDED_STATIC_SMEM), 1)
+
+
+def banded_smem_bytes(cap: int, itemsize: int) -> int:
+    """Shared memory of one block of the warp kernel of capacity ``cap``."""
+    return banded_warps(cap, itemsize) * banded_warp_bytes(cap, itemsize)
 
 _LAUNCHES_LOCK = threading.Lock()
 
 
-def count_launches(module: str, n: int) -> None:
+def count_launches(module: str, n: int, route: str = None) -> None:
     """Add ``n`` to the ``LAUNCHES`` counter of the wrapper module named
-    ``module``. Under a lock: ``FleetSolver`` launches from one thread per
-    card, and an unguarded read-add-store loses updates (the ctypes launch
-    releases the interpreter lock)."""
+    ``module`` (to ``LAUNCHES[route]`` when the module counts by route).
+    Under a lock: ``FleetSolver`` launches from one thread per card, and an
+    unguarded read-add-store loses updates (the ctypes launch releases the
+    interpreter lock)."""
     mod = sys.modules[module]
     with _LAUNCHES_LOCK:
-        mod.LAUNCHES += n
+        if route is None:
+            mod.LAUNCHES += n
+        else:
+            mod.LAUNCHES[route] += n
 
 
 # Scratch of one big-topology launch; a larger batch is launched in chunks.
@@ -199,10 +222,14 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_banded_spd.restype = i
     lib.ezpz_banded_spd.argtypes = [i, i, p, p, p, p, p,  # f64, lanes, band, rhs, factor, x, fail
                                     i, i, i, i, p]        # B, n, bw, m, stream
+    lib.ezpz_banded_spd_general.restype = i
+    lib.ezpz_banded_spd_general.argtypes = [i, p, p, p, p,  # f64, band, rhs, factor, x
+                                            p, p,           # sums, fail
+                                            i, i, i, i, p]  # B, n, bw, m, stream
     lib.ezpz_banded_capacity.restype = i
     lib.ezpz_banded_capacity.argtypes = [i]
     lib.ezpz_banded_warps.restype = i
-    lib.ezpz_banded_warps.argtypes = []
+    lib.ezpz_banded_warps.argtypes = [i, i]
     lib.ezpz_banded_smem_bytes.restype = i
     lib.ezpz_banded_smem_bytes.argtypes = [i, i]
     if compiled_shapes(lib) != SMALL_SHAPES:
@@ -215,16 +242,16 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def banded_plan(lib=None) -> tuple:
-    """(warps per block, {(capacity, itemsize): shared bytes per block}) of
+def banded_plan(lib=None) -> dict:
+    """{(capacity, itemsize): (lanes per block, shared bytes per block)} of
     the banded warp kernel: the library's report, or this module's mirror
     when ``lib`` is None."""
     if lib is None:
-        return BANDED_WARPS, {(cap, size): banded_smem_bytes(cap, size)
-                              for cap in BANDED_CAPACITIES for size in (4, 8)}
-    return lib.ezpz_banded_warps(), {
-        (cap, size): lib.ezpz_banded_smem_bytes(k, int(size == 8))
-        for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
+        return {(cap, size): (banded_warps(cap, size), banded_smem_bytes(cap, size))
+                for cap in BANDED_CAPACITIES for size in (4, 8)}
+    return {(cap, size): (lib.ezpz_banded_warps(k, int(size == 8)),
+                          lib.ezpz_banded_smem_bytes(k, int(size == 8)))
+            for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
 
 
 def banded_capacities(lib) -> tuple:

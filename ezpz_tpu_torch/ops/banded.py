@@ -11,14 +11,14 @@ is the diagonal); entries that fall off the left edge are zero. The factor
 uses the same layout. Rows above the top are virtual identity rows, so the
 first real rows divide by 1.0 and subtract 0.0 for out-of-range terms.
 
-``banded_spd_solve`` dispatches on the device: a CUDA band goes to the
-hand-written kernel (``ops/banded_spd.py``, ``csrc/banded_spd.cu``), which
-raises rather than fall back; a CPU band takes the plain version here,
-``banded_spd_reference``: the JAX package's ``lax.scan`` bodies written out
-as a loop over rows of (B,) tensor operations, every sum taken in a fixed
-order, term by term, that the kernel repeats (in eager PyTorch that loop is
-a chain of about ``n * (bw^2 + 3 bw)`` launches, which is why the card does
-not run it).
+``banded_spd_solve`` dispatches on the device: a CUDA band of any width
+goes to the hand-written kernels (``ops/banded_spd.py``,
+``csrc/banded_spd.cu``), which raise rather than fall back; a CPU band
+takes the plain version here, ``banded_spd_reference``: the JAX package's
+``lax.scan`` bodies written out as a loop over rows of (B,) tensor
+operations, every sum taken in a fixed order, term by term, that the
+kernels repeat (in eager PyTorch that loop is a chain of about
+``n * (bw^2 + 3 bw)`` launches, which is why the card does not run it).
 
 ``plan_band`` and ``make_banded_spd`` (the per-topology band route of the
 JAX package's ``BatchSolver``) are ported as functions and routed nowhere.
@@ -32,8 +32,9 @@ import torch
 from . import banded_spd
 from .fleet_plan import _jtj_pattern, _rcm_order
 
-# Bandwidth ceiling of ``plan_band`` (the JAX package's value); also the
-# widest band the CUDA kernel takes.
+# Bandwidth ceiling of ``plan_band`` (the JAX package's value), for its own
+# routing only: ``banded_spd_solve`` takes any half-bandwidth on either
+# device (on the card, ``ops.banded_spd.route_for`` picks the kernel).
 BANDED_MAX_BW = 32
 
 
@@ -125,7 +126,7 @@ def banded_spd_reference(Ab: torch.Tensor, b: torch.Tensor):
 def banded_spd_solve(Ab: torch.Tensor, b: torch.Tensor):
     """``spd_solve``'s contract for banded matrices: ``Ab`` (B, n, bw+1) and
     ``b`` (B, n) or (B, n, m) give ``(x, fail (B,))``, ``x`` zero-filled on
-    failed lanes. A CUDA band launches the hand-written kernel or raises; a
+    failed lanes. A CUDA band launches a hand-written kernel or raises; a
     CPU band takes ``banded_spd_reference``."""
     if Ab.device.type == "cuda":
         return banded_spd.banded_spd_cuda(Ab, b)

@@ -1,4 +1,4 @@
-"""The banded SPD solve's CUDA kernel and its binding.
+"""The banded SPD solve's CUDA kernels and their binding.
 
 Replaces the row-per-step ``lax.scan`` passes of
 ``ezpz_tpu.ops.banded.banded_cholesky`` and ``banded_solve``: one launch
@@ -7,14 +7,16 @@ systems, one warp per lane. Its plain version is
 ``ops.banded.banded_spd_reference``, and ``ops.banded.banded_spd_solve``
 dispatches between the two by device.
 
-The warp kernel reads the callers' (B, n, bw+1) band and (B, n, m)
-right-hand sides as they are; the one-thread-per-lane kernel, the route of
-batches of at least ``LANES_MIN_BATCH`` lanes, reads lane-fastest buffers,
-(row, band entry, lane), into which the wrapper transposes. The wrapper
-allocates the factor's scratch, launches on the current stream and raises
-on a refused launch. Bands up to
-``_build.BANDED_CAPACITIES[-1]`` (32) wide run; a wider one raises
-``NotImplementedError``.
+Every half-bandwidth runs, by one of three kernels that ``route_for``
+names from (B, bw): the warp kernel up to ``_build.BANDED_CAPACITIES[-1]``
+(64), which reads the callers' (B, n, bw+1) band and (B, n, m) right-hand
+sides as they are; the one-thread-per-lane kernel for batches of at least
+``LANES_MIN_BATCH`` lanes of bands up to ``_build.BANDED_LANES_MAX_BW``
+(32), which reads lane-fastest buffers, (row, band entry, lane), into
+which the wrapper transposes; and the general-width kernel for any wider
+band. The wrapper allocates the factor's scratch (and the general kernel's
+running sums), launches on the current stream and raises on a refused
+launch.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import torch
 from ..utils import debug
 from . import _build
 
-# Kernel launches made by ``banded_spd_cuda`` in this process.
-LAUNCHES = 0
+# Kernel launches made by ``banded_spd_cuda`` in this process, by route
+# (``route_for``); their sum is every launch.
+LAUNCHES = {"warp": 0, "lanes": 0, "general": 0}
 
 
 # Batches of at least this many lanes take the one-thread-per-lane kernel.
@@ -39,18 +42,22 @@ LAUNCHES = 0
 LANES_MIN_BATCH = 4096
 
 
-def route_for(B: int) -> str:
-    """The kernel a batch of ``B`` lanes takes: "warp" or "lanes"."""
+def route_for(B: int, bw: int) -> str:
+    """The kernel a batch of ``B`` lanes of half-bandwidth ``bw`` takes:
+    "lanes", "warp" or "general"."""
+    if bw > _build.BANDED_CAPACITIES[-1]:
+        return "general"
+    if bw > _build.BANDED_LANES_MAX_BW:
+        return "warp"
     return "lanes" if B >= LANES_MIN_BATCH else "warp"
 
 
 def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     """The kernel on CUDA ``Ab`` (B, n, bw+1) and ``b`` (B, n) or (B, n, m),
     both float32 or both float64: returns ``(x, fail (B,) bool)`` as
-    ``ops.banded.banded_spd_reference`` does, by the kernel ``route_for(B)``
-    names. Raises when the inputs are not on a CUDA device, the band is
-    wider than the kernel's largest capacity, ``nvcc`` or the build fails,
-    or the launch is refused."""
+    ``ops.banded.banded_spd_reference`` does, by the kernel
+    ``route_for(B, bw)`` names. Raises when the inputs are not on a CUDA
+    device, ``nvcc`` or the build fails, or the launch is refused."""
     if Ab.device.type != "cuda" or b.device != Ab.device:
         raise ValueError(f"banded_spd_cuda takes CUDA tensors on one device, got "
                          f"{Ab.device} and {b.device}")
@@ -62,14 +69,12 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
                          f"(B, n, bw+1) and (B, n[, m])")
     B, n, bwp1 = Ab.shape
     bw = bwp1 - 1
-    if bw > _build.BANDED_CAPACITIES[-1]:
-        raise NotImplementedError(f"half-bandwidth {bw} exceeds the banded kernel's "
-                                  f"largest capacity {_build.BANDED_CAPACITIES[-1]}")
     m = 1 if b.dim() == 2 else b.shape[2]
     fail = torch.zeros((B,), dtype=torch.bool, device=Ab.device)
     if B == 0 or n == 0 or m == 0:
         return torch.zeros_like(b), fail
-    lanes = route_for(B) == "lanes"
+    route = route_for(B, bw)
+    lanes = route == "lanes"
     if lanes:
         ab_k = Ab.permute(1, 2, 0).contiguous()
         rhs_k = b.reshape(B, n, m).permute(1, 2, 0).contiguous()
@@ -77,17 +82,24 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
         ab_k, rhs_k = Ab.contiguous(), b.reshape(B, n, m).contiguous()
     lb_k = torch.empty_like(ab_k)
     x_k = torch.empty_like(rhs_k)
+    f64 = int(Ab.dtype == torch.float64)
     lib = _build.load_library()
     with torch.cuda.device(Ab.device):
-        stream = torch.cuda.current_stream(Ab.device).cuda_stream
-        err = lib.ezpz_banded_spd(int(Ab.dtype == torch.float64), int(lanes),
-                                  ab_k.data_ptr(), rhs_k.data_ptr(), lb_k.data_ptr(),
-                                  x_k.data_ptr(), fail.data_ptr(), B, n, bw, m,
-                                  ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(Ab.device).cuda_stream)
+        if route == "general":
+            sums = torch.empty((B, bw), dtype=Ab.dtype, device=Ab.device)
+            err = lib.ezpz_banded_spd_general(f64, ab_k.data_ptr(), rhs_k.data_ptr(),
+                                              lb_k.data_ptr(), x_k.data_ptr(),
+                                              sums.data_ptr(), fail.data_ptr(), B, n, bw,
+                                              m, stream)
+        else:
+            err = lib.ezpz_banded_spd(f64, int(lanes), ab_k.data_ptr(), rhs_k.data_ptr(),
+                                      lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(),
+                                      B, n, bw, m, stream)
     if err != 0:
-        raise RuntimeError(f"banded_spd kernel launch failed: cudaError {err} "
-                           f"({_build.error_string(lib, err)})")
-    _build.count_launches(__name__, 1)
+        raise RuntimeError(f"banded_spd kernel launch failed ({route}, bw={bw}): cudaError "
+                           f"{err} ({_build.error_string(lib, err)})")
+    _build.count_launches(__name__, 1, route)
     debug.check_outputs("the banded_spd kernel", x_k)
     if lanes:
         x_k = x_k.permute(2, 0, 1)

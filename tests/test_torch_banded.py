@@ -213,14 +213,20 @@ def test_banded_plan_fits_a_block(cap, itemsize):
     """Every capacity's warp kernel, in f32 and f64, holds its rings in one
     block's shared memory: within the H100's 227 KB, and within the 48 KB
     of static shared memory the kernel declares (beyond it the build would
-    need the opt-in attribute); and rows wide enough for the band and one
-    right-hand-side value, at an odd stride minus one."""
+    need the opt-in attribute), with 4 lanes a block up to capacity 32 and
+    as many of 4, 2 or 1 as fit above; and rows wide enough for the band
+    and one right-hand-side value, at an odd stride minus one."""
+    warps = _build.banded_warps(cap, itemsize)
     nbytes = _build.banded_smem_bytes(cap, itemsize)
-    assert nbytes <= 232_448 and nbytes <= 48 * 1024
+    assert nbytes <= 232_448 and nbytes <= _build.BANDED_STATIC_SMEM == 48 * 1024
+    assert warps == 4 if cap <= 32 else warps in (1, 2, 4)
+    per_warp = _build.banded_warp_bytes(cap, itemsize)
+    assert warps == 4 or 2 * warps * per_warp > 48 * 1024
     rows = cap + 1 + _build.BANDED_STAGE_ROWS
-    stride = nbytes // (_build.BANDED_WARPS * rows * itemsize)
-    assert stride * _build.BANDED_WARPS * rows * itemsize == nbytes
+    stride = nbytes // (warps * rows * itemsize)
+    assert stride * warps * rows * itemsize == nbytes
     assert stride >= cap + 2 and (stride - 1) % 2 == 1
+    assert _build.banded_plan()[cap, itemsize] == (warps, nbytes)
 
 
 def test_banded_points_help():
@@ -277,8 +283,13 @@ def test_banded_points_cpu_point():
 
 
 def test_banded_route_by_batch():
-    """Batches below ``LANES_MIN_BATCH`` take the warp kernel, the rest the
-    one-thread-per-lane kernel."""
+    """Bands up to 32 wide take the warp kernel below ``LANES_MIN_BATCH``
+    lanes and the one-thread-per-lane kernel from there; bands 33-64 wide
+    the warp kernel at any batch, wider ones the general-width kernel."""
     cut = banded_spd.LANES_MIN_BATCH
-    assert [banded_spd.route_for(B) for B in (1, 1024, cut - 1, cut, 4 * cut)] == [
-        "warp", "warp", "warp", "lanes", "lanes"]
+    batches = (1, 1024, cut - 1, cut, 4 * cut)
+    routes = {bw: [banded_spd.route_for(B, bw) for B in batches] for bw in (0, 11, 32, 33, 64, 65)}
+    assert routes == {0: ["warp"] * 3 + ["lanes"] * 2, 11: ["warp"] * 3 + ["lanes"] * 2,
+                      32: ["warp"] * 3 + ["lanes"] * 2, 33: ["warp"] * 5, 64: ["warp"] * 5,
+                      65: ["general"] * 5}
+    assert _build.BANDED_LANES_MAX_BW == 32 and _build.BANDED_CAPACITIES[-1] == 64
