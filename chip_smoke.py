@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line):
 1. the card (``nvidia-smi`` name and power limit) and the CUDA runtime;
    no GPU, no run;
 2. build the kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``,
-   ``csrc/banded_spd.cu``) with nvcc, one compiler per source, and print
+   ``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``) with nvcc, one
+   compiler per source, all started together, and print
    each instantiation's registers, stack frame and spills, and the fleet
    kernels' resident threads per SM;
 3. the fused kernel against its plain PyTorch version on the card, on every
@@ -116,20 +117,31 @@ Phases (any failure exits non-zero before the result line):
    alone on the first boundary solve's band against its plain version and
    the dense ``cholesky_ex`` + ``cholesky_solve`` of the same matrix, in
    f32 and f64;
+8l. the one-thread-per-lane route on the main path (``phase8_lanes``):
+   phase 8's chain at 8192 copies (past ``LANES_MIN_BATCH``) through
+   ``BlockSchurSolver(boundary_solver="auto")`` (banded, mixed), counts
+   from zero, phase 8's gate, the ``"lanes"`` route launched; the lane
+   kernel alone on the run's first band (B = 8192, n = 952, bw = 11):
+   bit-equal to the plain version in f32 and f64, backward error, the
+   warp kernel forced on the same band (bit-equal, timed beside it: the
+   crossover re-measured), the bound, and the dense library in chunks of
+   1024 lanes (8192 x 952^2 in f64 does not fit), their times summed;
 8w. a boundary band wider than 32 (``phase8w``): the same chain and
    copies with every 4th of the 120 parts' variables moved to the part 3
    to its right (``moved_parts``), so that ``boundary_solver="auto"``
-   resolves to banded at n_b = 952, bw = 35, past the lane kernel's 32:
-   mixed and f64, counts from zero, phase 8's gate, the warp kernel's
-   route launched, mixed and f64 within ``COUPLED_X_TOL``; a world-1
-   ``ShardedBlockSchurSolver`` (B = 1) on the same parts, converged and
-   satisfied, its own launches; the kernel alone on the mixed run's first
-   band and the sharded run's (``phase8_kernel``: bit-equal to the plain
-   version in f32 and f64, backward error, the library, the bound); the
-   general-width kernel on the same band, bit-equal to the warp kernel and
-   timed beside it; then every 8th part moved 7 (bw = 67) in mixed through
-   the general-width kernel with the same gate, and that kernel alone on
-   the run's first band (``phase8_kernel`` again);
+   resolves to banded at n_b = 952, bw = 35, past the warp and lane
+   kernels' 32: mixed and f64, counts from zero, phase 8's gate, the
+   dynamic-width kernel's route launched, mixed and f64 within
+   ``COUPLED_X_TOL``; a world-1 ``ShardedBlockSchurSolver`` (B = 1) on the
+   same parts, converged and satisfied, its own launches; the kernel alone
+   on the mixed run's first band and the sharded run's (``phase8_kernel``:
+   bit-equal to the plain version in f32 and f64, backward error, the
+   library, the bound), the general-width kernel forced on the same band,
+   bit-equal and timed beside it; then every 8th part moved 7 (bw = 67) in
+   mixed through the dynamic-width kernel with the same gate, the same run
+   with the general-width kernel forced, and the dynamic-width kernel alone
+   on the first run's band (``phase8_kernel`` again), the general-width
+   kernel forced on that band, bit-equal and timed beside it;
 9. the single-device remainder (``phase9``):
    (a) ``parallel.FleetSolver`` over every visible card on the main path
    (the massive fixture x 8192, both buckets, mixed + fused): counts from
@@ -197,10 +209,14 @@ bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
 counted from this run's inputs and iteration counts). No single PyTorch
 call computes an LM fleet solve, so the fleet kernels' ``library_ms`` is
 null; the banded kernel's is the dense Cholesky factorization and solve
-of the same matrix. The banded kernel's wide routes are records of their
-own: ``banded_spd_wide`` (the warp kernel's capacity 48 at phase 8w's
-band; launches of its mixed, f64 and sharded runs) and
-``banded_spd_general`` (at the bw = 67 run's band; its launches). The last line is ``{"ok": true, "device": {...}}``.
+of the same matrix. The banded kernel's other routes are records of their
+own: ``banded_spd_lanes`` (the one-thread-per-lane kernel at phase 8l's
+band; its launches), ``banded_spd_wide`` (the dynamic-width kernel at
+phase 8w's bw = 35 band; launches of its mixed, f64 and sharded runs),
+``banded_spd_dynamic`` (the dynamic-width kernel at the bw = 67 run's
+band; its launches) and ``banded_spd_general`` (the general-width kernel
+forced on that band, bit-equal to the plain version; the launches of the
+bw = 67 run with the route forced). The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -257,7 +273,8 @@ def ptxas_summary(log_path):
     for line in open(log_path):
         m = re.search(r"Compiling entry function '.*?(fused|coarse)_(small|big)_kernel"
                       r"(?:ILi(\d+)ELi(\d+)E)?", line)
-        b = re.search(r"Compiling entry function '.*?banded_spd_(warp|lanes)_kernelI([fd])Li(\d+)E",
+        b = re.search(r"Compiling entry function '.*?banded_spd_(warp|lanes|dynamic)_kernel"
+                      r"I([fd])Li(\d+)E",
                       line)
         g = re.search(r"Compiling entry function '.*?banded_spd_general_kernelI([fd])E", line)
         if m:
@@ -1598,22 +1615,81 @@ def band_backward_error(Ab, x, b) -> float:
 BACKWARD_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-13}
 
 
-def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=()):
+@contextlib.contextmanager
+def forced_route(route):
+    """Within the block, ``banded_spd.route_for`` names ``route`` (the
+    wrapper launches that kernel whatever the band)."""
+    from ezpz_tpu_torch.ops import banded_spd
+
+    saved = banded_spd.route_for
+    banded_spd.route_for = lambda *_a: route
+    try:
+        yield
+    finally:
+        banded_spd.route_for = saved
+
+
+def dense_library(Ab, b, chunk=None):
+    """The PyTorch call that computes the banded solve on the dense matrix
+    of the same band (``cholesky_ex`` + ``cholesky_solve``, the dense
+    boundary's), in chunks of ``chunk`` lanes when the whole batch's dense
+    matrices do not fit the card. Returns (x, ms): one chunk's dense
+    matrix is built outside the timed calls; ms is the chunks' summed
+    time, each chunk's the median of REPS CUDA-event calls (or one host-
+    clock call when that takes longer than LIBRARY_ONCE_MS)."""
+    import torch
+
+    B, n, bwp1 = Ab.shape
+    bw = bwp1 - 1
+    rows = torch.arange(n, device=Ab.device)[:, None]
+    cols = rows - bw + torch.arange(bwp1, device=Ab.device)[None, :]
+    keep = (cols >= 0).expand(n, bwp1)
+    r_idx, c_idx = rows.expand(n, bwp1)[keep], cols[keep]
+    xs, total = [], 0.0
+    step = chunk or B
+    for lo in range(0, B, step):
+        ab, rhs = Ab[lo:lo + step], b[lo:lo + step]
+        dense = torch.zeros((ab.shape[0], n, n), dtype=Ab.dtype, device=Ab.device)
+        dense[:, r_idx, c_idx] = ab[:, keep]
+        dense[:, c_idx, r_idx] = ab[:, keep]
+
+        def library():
+            L, _info = torch.linalg.cholesky_ex(dense)
+            return torch.cholesky_solve(rhs[..., None], L)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xs.append(library()[..., 0])
+        torch.cuda.synchronize()
+        once = (time.perf_counter() - t0) * 1e3
+        total += once if once > LIBRARY_ONCE_MS else events_ms(library)
+        del dense
+    torch.cuda.empty_cache()
+    return torch.cat(xs), total
+
+
+def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=(), forced=(),
+                  library_chunk=None):
     """The banded kernel alone at the operating point's band (the first
     boundary solve of a main-path run): against its plain version on the
     card at full size (once: a chain of ~n (bw^2 + 3 bw) launches), and
     against the PyTorch call that computes the same function on the dense
-    matrix of the same band (``cholesky_ex`` + ``cholesky_solve``, the
-    dense boundary's), in f32 and f64 (or ``dtypes``). Kernel and plain
-    version must agree bit for bit (the same operations in the same order)
-    and the kernel's answer must be backward stable (BACKWARD_TOL); the
-    library's backward error and its difference from the kernel are
-    printed. ``also`` holds more (band, rhs) pairs of the same n and bw
-    (another call site's first band): the kernel solves each at its own
-    batch, and the plain version takes their lanes beside the band's in
-    its one call (its lanes are independent elementwise chains, so a
-    lane's answer does not depend on the others). Returns the record of
-    the kernels line (f32's, if run), timed on ``band``."""
+    matrix of the same band (``dense_library``, in chunks of
+    ``library_chunk`` lanes where given), in f32 and f64 (or ``dtypes``).
+    Kernel and plain version must agree bit for bit (the same operations
+    in the same order) and the kernel's answer must be backward stable
+    (BACKWARD_TOL); the library's backward error and its difference from
+    the kernel are printed. ``also`` holds more (band, rhs) pairs of the
+    same n and bw (another call site's first band): the kernel solves each
+    at its own batch, and the plain version takes their lanes beside the
+    band's in its one call (its lanes are independent elementwise chains,
+    so a lane's answer does not depend on the others). ``forced`` names
+    other routes of the wrapper that take this band: each is launched on
+    it with the route forced (``forced_route``), must equal the plain
+    version bit for bit too, and is timed beside the wrapper's own route.
+    Returns the record of the kernels line (f32's, if run), timed on
+    ``band``; ``rec["forced"][route]`` holds each forced route's ms and
+    max |x - x_plain|."""
     import torch
 
     from ezpz_tpu_torch.ops import banded
@@ -1640,35 +1716,32 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=()):
                              f"row {first}, fails {int(fail.sum())} / {int(failr.sum())})")
         x = x[:B]
         kms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
-        dense = torch.zeros((B, n, n), dtype=dtype, device=band.device)
-        rows = torch.arange(n, device=band.device)[:, None]
-        cols = rows - bw + torch.arange(bwp1, device=band.device)[None, :]
-        keep = (cols >= 0).expand(n, bwp1)
-        r_idx, c_idx = rows.expand(n, bwp1)[keep], cols[keep]
-        dense[:, r_idx, c_idx] = Ab[:, keep]
-        dense[:, c_idx, r_idx] = Ab[:, keep]
-
-        def library():
-            L, _info = torch.linalg.cholesky_ex(dense)
-            return torch.cholesky_solve(b[..., None], L)
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lx = library()[..., 0]
-        torch.cuda.synchronize()
-        once = (time.perf_counter() - t0) * 1e3
-        lib_ms = once if once > LIBRARY_ONCE_MS else events_ms(library)
+        others = {}
+        for route in forced:
+            with forced_route(route):
+                xf, ff = banded.banded_spd_solve(Ab, b)
+                fms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
+            same = torch.equal(xf, xr[:B]) and torch.equal(ff, failr[:B])
+            others[route] = dict(ms=fms, max_abs_err=float((xf - xr[:B]).abs().max()))
+            print(f"{label} {route} route forced on the band {dtype}: {fms!r} ms per call "
+                  f"(CUDA events, median of {REPS}) against the wrapper's own route's "
+                  f"{kms!r} ms; bit-equal to the plain version {same}; card: {card}",
+                  flush=True)
+            if not same:
+                raise SystemExit(f"chip_smoke: {label} {route} route differs from the "
+                                 f"plain version ({dtype})")
+        lx, lib_ms = dense_library(Ab, b, library_chunk)
         lerr = float((lx - x).abs().max() / x.abs().max())
-        del dense
         kbe, lbe = band_backward_error(Ab, x, b), band_backward_error(Ab, lx, b)
+        del lx
         bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
+        chunked = f", in chunks of {library_chunk} lanes, summed" if library_chunk else ""
         print(f"{label} banded kernel {dtype}: B={B} n={n} bw={bw}: {kms!r} ms per call "
               f"(CUDA events, median of {REPS}), {kms * 1e3 / n!r} us per row, "
               f"{kms * 1e6 / (n * B)!r} ns per row per lane; plain version "
               f"{plain_ms!r} ms (once, host clock, {xr.shape[0]} lanes: also batches "
               f"{[a.shape[0] for a, _ in also]}), bit-equal {bits}; dense "
-              f"cholesky_ex + cholesky_solve {lib_ms!r} ms ("
-              f"{'once' if once > LIBRARY_ONCE_MS else f'median of {REPS}'}); backward "
+              f"cholesky_ex + cholesky_solve {lib_ms!r} ms{chunked}; backward "
               f"error kernel {kbe!r}, library {lbe!r}; relative difference library - "
               f"kernel {lerr!r}; bound {bound!r} ms ({bound_by}, "
               f"{100 * bound / kms:.2f}% of the kernel's time); card: {card}", flush=True)
@@ -1677,7 +1750,7 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=()):
                              f"exceeds {BACKWARD_TOL[str(dtype)]!r}")
         if rec is None or dtype == torch.float32:
             rec = dict(max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bound,
-                       bound_by=bound_by, library_ms=lib_ms)
+                       bound_by=bound_by, library_ms=lib_ms, forced=others)
     return rec
 
 
@@ -1805,22 +1878,92 @@ def phase8(dev, card):
     return dict(launches=launches, **rec)
 
 
+# Phase 8l: phase 8's chain at LANES_COPIES copies, past
+# ``banded_spd.LANES_MIN_BATCH``: "auto" resolves to banded (bw = 11) and
+# the one-thread-per-lane kernel runs on the main path. The dense library
+# of its band (8192 x 952^2, 59 GB in f64) is taken in chunks.
+LANES_COPIES = 8192
+LIBRARY_CHUNK = 1024
+
+
+def phase8_lanes(dev, card):
+    """The coupled chain at LANES_COPIES copies through
+    ``BlockSchurSolver(boundary_solver="auto")`` (banded, mixed) on the
+    card, counts from zero, with phase 8's gate and the lane kernel's
+    route launched; then that kernel alone on the run's first band
+    (``phase8_kernel``: bit-equal to the plain version in f32 and f64, the
+    warp kernel forced on the same band and timed beside it, the dense
+    library in chunks of LIBRARY_CHUNK lanes, the bound). Returns the
+    kernels line's record."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.benches import coupled_bench
+    from ezpz_tpu_torch.ops import banded_spd
+    from ezpz_tpu_torch.parallel import BlockSchurSolver, block_schur
+
+    t_start = time.perf_counter()
+    cons, x0 = coupled_bench.build_problem(COUPLED_LINES)
+    n = len(x0)
+    rng = np.random.default_rng(88)
+    x0s = torch.as_tensor(x0 + rng.normal(0.0, COUPLED_SIGMA, (LANES_COPIES, n)), device=dev)
+    solver = BlockSchurSolver(cons, n, n_parts=COUPLED_PARTS, boundary_solver="auto",
+                              precision="mixed", device=dev)
+    got = (solver.P, solver.m, solver.kb, solver.n_b, solver.band_bw)
+    print(f"phase8l structure: P={got[0]} m={got[1]} kb={got[2]} n_b={got[3]} bw={got[4]} "
+          f"auto -> {solver.boundary_solver}; route at {LANES_COPIES} lanes: "
+          f"{banded_spd.route_for(LANES_COPIES, got[4], 4)}", flush=True)
+    if got != COUPLED_STRUCTURE or solver.boundary_solver != "banded":
+        raise SystemExit("chip_smoke: phase8l structure is not phase 8's banded chain")
+    solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
+    banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+    torch.cuda.reset_peak_memory_stats()
+    with first_band(block_schur) as captured:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, sat = solver.solve_batch(x0s)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    routes = dict(banded_spd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    r, _deg = solver.system.residual_and_flags(res.x)
+    rmax = float(r.abs().max())
+    conv, sat_all = bool(res.converged.all()), bool(sat.all())
+    print(f"phase8l gate: {LANES_COPIES} copies, converged={conv} satisfied={sat_all} "
+          f"f64_residual_max={rmax!r} iterations {int(res.iterations.min())}-"
+          f"{int(res.iterations.max())}; {wall * 1e3!r} ms (host clock, once); banded "
+          f"launches by route {routes}; peak device memory {peak!r} bytes; card: {card}",
+          flush=True)
+    if not (conv and sat_all and rmax <= 1e-8) or routes["lanes"] == 0:
+        raise SystemExit("chip_smoke: phase8l failed its gate or never launched the "
+                         "banded kernel's lanes route")
+    del x0s, res, sat, r
+    rec = phase8_kernel(*captured[0], card, label="phase8l lane kernel", forced=("warp",),
+                        library_chunk=LIBRARY_CHUNK)
+    print(f"phase8l ok: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return dict(rec, launches=routes["lanes"])
+
+
 # Phase 8w: a boundary band wider than 32. Every 4th part's variables
 # go to the part 3 to its right (WIDE_MAP, ``coupled_bench.moved_parts``),
-# which widens the chain's boundary band past the lane kernel's 32: "auto"
-# resolves it to banded (both packages' rule has no cap) and the warp
-# kernel's capacity 48 runs. GENERAL_MAP (every 8th part to the part 7 to
-# its right) widens it past the warp kernel's 64: the general-width kernel
-# runs on the main path.
+# which widens the chain's boundary band past the warp and lane kernels'
+# 32: "auto" resolves it to banded (both packages' rule has no cap) and
+# the dynamic-width kernel runs. GENERAL_MAP (every 8th part to the part 7
+# to its right) widens it to 67, past the widest capacity the warp kernel
+# had before the dynamic-width kernel (64): the dynamic-width kernel runs
+# on the main path, and in a second run the general-width kernel with the
+# route forced.
 WIDE_MAP = (4, 3)
 WIDE_STRUCTURE = (952, 35, "banded")
 GENERAL_MAP = (8, 7)
 GENERAL_STRUCTURE = (952, 67, "banded")
 
 
-def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label, route):
+def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label, route,
+               force=None):
     """One ``BlockSchurSolver(part_of_var=..., boundary_solver="auto")``
-    main-path run on the card, counts from zero, with phase 8's gate;
+    main-path run on the card, counts from zero, with phase 8's gate (the
+    banded kernel's ``force`` route forced for the run, when given);
     returns (result, the first boundary solve's band and rhs, the route's
     launches, the solver)."""
     import torch
@@ -1835,14 +1978,15 @@ def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label
           f"bw={got[1]} auto -> {got[2]}", flush=True)
     if got != structure:
         raise SystemExit(f"chip_smoke: {label} structure {got} is not {structure}")
-    solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
-    banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
-    with first_band(block_schur) as captured:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res, sat = solver.solve_batch(x0s)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    with forced_route(force) if force else contextlib.nullcontext():
+        solver.solve_batch(x0s[:2])  # warm-up: the library's first calls
+        banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+        with first_band(block_schur) as captured:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, sat = solver.solve_batch(x0s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     routes = dict(banded_spd.LAUNCHES)
     r, _deg = solver.system.residual_and_flags(res.x)
     rmax = float(r.abs().max())
@@ -1850,54 +1994,28 @@ def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label
     print(f"{label} gate: {len(x0s)} copies, converged={conv} satisfied={sat_all} "
           f"f64_residual_max={rmax!r} iterations {int(res.iterations.min())}-"
           f"{int(res.iterations.max())}; {wall * 1e3!r} ms (host clock, once); banded "
-          f"launches by route {routes}; card: {card}", flush=True)
+          f"launches by route {routes}{f' ({force} forced)' if force else ''}; card: {card}",
+          flush=True)
     if not (conv and sat_all and rmax <= 1e-8) or routes[route] == 0:
         raise SystemExit(f"chip_smoke: {label} failed its gate or never launched the "
                          f"banded kernel's {route} route")
     return res, captured[0], routes[route], solver
 
 
-def general_on(band, card):
-    """The warp tier's reason to exist: the general-width kernel on the warp
-    tier's band (``route_for`` pointed at it for these calls only), equal
-    bit for bit to the warp kernel's answer and timed beside it, in f32 and
-    f64."""
-    import torch
-
-    from ezpz_tpu_torch.ops import banded, banded_spd
-
-    for dtype in (torch.float32, torch.float64):
-        Ab, b = band[0].to(dtype), band[1].to(dtype)
-        want = banded.banded_spd_solve(Ab, b)
-        warp_ms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
-        route_for = banded_spd.route_for
-        banded_spd.route_for = lambda _B, _bw: "general"
-        try:
-            got = banded.banded_spd_solve(Ab, b)
-            general_ms = events_ms(lambda: banded.banded_spd_solve(Ab, b))
-        finally:
-            banded_spd.route_for = route_for
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        print(f"phase8w general kernel on the warp tier's band {dtype}: B={Ab.shape[0]} "
-              f"n={Ab.shape[1]} bw={Ab.shape[2] - 1}: {general_ms!r} ms against the warp "
-              f"kernel's {warp_ms!r} ms (CUDA events, median of {REPS}, one call each); "
-              f"bit-equal {same}; card: {card}", flush=True)
-        if not same:
-            raise SystemExit("chip_smoke: phase8w general and warp kernels differ")
-
-
 def phase8w(dev, card):
     """A boundary band wider than 32 on the card: the 600-line chain, 1024
     copies, 120 parts moved by WIDE_MAP (auto -> banded, n_b = 952, bw =
-    35) in mixed and f64 through the warp kernel's capacity 48, with phase
-    8's gate; a world-1 ``ShardedBlockSchurSolver`` solve on the same parts
+    35) in mixed and f64 through the dynamic-width kernel, with phase 8's
+    gate; a world-1 ``ShardedBlockSchurSolver`` solve on the same parts
     (its own call site); the kernel alone on the mixed run's first band and
     the sharded run's (``phase8_kernel``: bit for bit against the plain
-    version, the dense library and the bound); the general-width kernel on
-    that band too (``general_on``); then the chain moved by GENERAL_MAP (bw
-    = 67) through the general-width kernel, and that kernel alone on its
-    run's first band (``phase8_kernel``). Returns the kernels line's
-    records of the two wide routes."""
+    version, the dense library and the bound), with the other kernels that
+    take the band forced on it, bit-equal and timed beside it; then the
+    chain moved by GENERAL_MAP (bw = 67) through the dynamic-width kernel,
+    the same run with the general-width kernel forced, and the
+    dynamic-width kernel alone on the first run's band (``phase8_kernel``,
+    the general-width kernel forced beside it). Returns the kernels line's
+    records of the three wide routes."""
     import numpy as np
     import torch
 
@@ -1911,11 +2029,12 @@ def phase8w(dev, card):
     rng = np.random.default_rng(81)
     x0s = torch.as_tensor(x0 + rng.normal(0.0, COUPLED_SIGMA, (COUPLED_COPIES, n)), device=dev)
     q = coupled_bench.moved_parts(n, COUPLED_PARTS, *WIDE_MAP)
+    wide_route = banded_spd.route_for(COUPLED_COPIES, WIDE_STRUCTURE[1], 4)
     wide_launches, xs = 0, {}
     for precision in ("mixed", "f64"):
         res, band, launches, solver = wide_solve(
             cons, n, x0s, q, WIDE_STRUCTURE, precision, dev, card, f"phase8w {precision}",
-            "warp")
+            wide_route)
         wide_launches += launches
         xs[precision] = res.x
         if precision == "mixed":
@@ -1937,7 +2056,7 @@ def phase8w(dev, card):
     r, _deg = solver.system.residual_and_flags(
         torch.as_tensor(out["x"], device=dev)[None])
     rmax = float(r.abs().max())
-    hier_launches = banded_spd.LAUNCHES["warp"]
+    hier_launches = banded_spd.LAUNCHES[wide_route]
     print(f"phase8w ShardedBlockSchurSolver (world 1, B = 1): n_b={sharded.n_b} "
           f"bw={sharded.band_bw} {sharded.boundary_solver}; converged={out['converged']} "
           f"satisfied={bool(out['satisfied'].all())} f64_residual_max={rmax!r} iterations "
@@ -1948,16 +2067,22 @@ def phase8w(dev, card):
         raise SystemExit("chip_smoke: phase8w sharded solve failed or never launched "
                          "the banded kernel")
     wide_launches += hier_launches
-    wide = phase8_kernel(*wband, card, label="phase8w warp tier", also=captured)
-    general_on(wband, card)
+    others = tuple(r for r in ("dynamic", "general") if r != wide_route)
+    wide = phase8_kernel(*wband, card, label=f"phase8w {wide_route} route at bw = 35",
+                         also=captured, forced=others)
 
-    # The general-width kernel on the main path, then alone on its band.
+    # The dynamic-width kernel on the main path, the general-width kernel on
+    # the same path forced, then both alone on the first run's band.
     g = coupled_bench.moved_parts(n, COUPLED_PARTS, *GENERAL_MAP)
-    _res, gband, general_launches, _solver = wide_solve(
-        cons, n, x0s, g, GENERAL_STRUCTURE, "mixed", dev, card, "phase8w general", "general")
-    general = phase8_kernel(*gband, card, label="phase8w general kernel")
+    _res, gband, dyn_launches, _solver = wide_solve(
+        cons, n, x0s, g, GENERAL_STRUCTURE, "mixed", dev, card, "phase8w dynamic", "dynamic")
+    _res, _band, general_launches, _solver = wide_solve(
+        cons, n, x0s, g, GENERAL_STRUCTURE, "mixed", dev, card, "phase8w general", "general",
+        force="general")
+    dyn = phase8_kernel(*gband, card, label="phase8w dynamic-width kernel", forced=("general",))
+    general = dict(dyn, launches=general_launches, **dyn["forced"]["general"])
     print(f"phase8w ok: {time.perf_counter() - t_start:.1f} s", flush=True)
-    return (dict(launches=wide_launches, **wide), dict(launches=general_launches, **general))
+    return (dict(wide, launches=wide_launches), dict(dyn, launches=dyn_launches), general)
 
 
 # Phase 9: the single-device remainder.
@@ -2623,7 +2748,8 @@ def main() -> int:
     full, api_us = phase6(dev, card)
     phase7(dev, card, full, api_us)
     band = phase8(dev, card)
-    wide, general = phase8w(dev, card)
+    lanes = phase8_lanes(dev, card)
+    wide, dynamic, general = phase8w(dev, card)
     phase9(dev, card)
     launches = phase10(dev, card)
     # The banded kernel's record is phase 8's operating point's; its
@@ -2635,7 +2761,9 @@ def main() -> int:
             ("fused_fleet", fused, "fused_fleet", "ezpz_tpu/ops/pallas_fleet.py:898"),
             ("coarse_fleet", coarse, "coarse_fleet", "ezpz_tpu/ops/pallas_fleet.py:598"),
             ("banded_spd", band, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
-            ("banded_spd_wide", wide, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_lanes", lanes, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_wide", wide, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_dynamic", dynamic, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_general", general, "banded_spd", "ezpz_tpu/ops/banded.py:37")):
         kernels.append({
             "name": name,

@@ -9,10 +9,13 @@ median: ms per call, us per row (time / n), ns per row per lane
 the factor's and both substitutions' operations, the formula of
 ``chip_smoke.banded_bound_ms``), the dense ``cholesky_ex`` +
 ``cholesky_solve`` of the same matrices where they fit, and a hash of x
-(two trees' kernels must agree bit for bit). Where the wrapper routes by
-batch size (``banded_spd.LANES_MIN_BATCH``) both kernels are timed as
-well. It only uses the wrapper's public call, so it also runs against
-older checkouts.
+(two trees' kernels must agree bit for bit). Beside the wrapper's own
+route, every kernel that takes the band is timed with the route forced
+(``banded_spd.route_for`` replaced for those calls): up to 32 the warp and
+the one-thread-per-lane kernels, wider the warp kernel up to 64, the
+dynamic-width kernel and the general-width kernel. It uses only the
+wrapper's call, its route function and launch counts, so it also runs
+against older checkouts (parent, change, change, parent in one call).
 
     python -m ezpz_tpu_torch.benches.banded_points                      # the card
     python -m ezpz_tpu_torch.benches.banded_points --points 1024:952:11 --dtypes f64
@@ -142,13 +145,23 @@ def measure(B, n, bw, dtype, device, reps, seed):
         return [dict(base, route="plain version, CPU host clock", ms=ms,
                      fails=int(fail.sum()),
                      x_sha256=hashlib.sha256(x.numpy().tobytes()).hexdigest()[:16])]
-    # Both of the wrapper's kernels where it routes by batch size (bands
-    # up to the lane kernel's widest): a crossover above B takes the warp
-    # kernel, one of 1 the lane kernel.
-    cut = getattr(banded_spd, "LANES_MIN_BATCH", None)
-    routes = {"default": cut}
-    if cut is not None and bw <= getattr(_build, "BANDED_LANES_MAX_BW", 32):
-        routes.update(warp=B + 1, lanes=1)
+    # The wrapper's own route, then every kernel that takes the band with
+    # the route forced (``route_for`` pointed at it for these calls): the
+    # warp and lane kernels up to their widths, the dynamic-width kernel
+    # from 32 to its limit, the general-width kernel at any width. Routes
+    # the checkout's wrapper does not count are skipped, so that the script
+    # runs against older checkouts too.
+    launches = getattr(banded_spd, "LAUNCHES", None)
+    routes = ["default"]
+    if isinstance(launches, dict) and hasattr(banded_spd, "route_for"):
+        takes = {
+            "lanes": bw <= getattr(_build, "BANDED_LANES_MAX_BW", 32),
+            "warp": bw <= getattr(_build, "BANDED_CAPACITIES", (32,))[-1],
+            "dynamic": hasattr(_build, "banded_dyn_max_bw")
+            and 32 <= bw <= _build.banded_dyn_max_bw(Ab.element_size()),
+            "general": True,
+        }
+        routes += [r for r in launches if takes.get(r, False)]
     out = []
     lib_ms = None
     dense_bytes = 2 * B * n * n * Ab.element_size()
@@ -165,17 +178,24 @@ def measure(B, n, bw, dtype, device, reps, seed):
     def call():
         return banded.banded_spd_solve(Ab, b)
 
-    for route, route_cut in routes.items():
-        if cut is not None:
-            banded_spd.LANES_MIN_BATCH = route_cut
+    route_for = getattr(banded_spd, "route_for", None)
+    for route in routes:
+        if route != "default":
+            banded_spd.route_for = lambda *_a, _r=route: _r
         try:
+            before = dict(launches) if isinstance(launches, dict) else None
             x, fail = call()
             torch.cuda.synchronize()
+            took = (None if before is None else
+                    [k for k in launches if launches[k] != before[k]])
             ms = events_ms(call, reps)
         finally:
-            if cut is not None:
-                banded_spd.LANES_MIN_BATCH = cut
-        out.append(dict(base, route=route, ms=ms, us_per_row=ms * 1e3 / n,
+            if route_for is not None:
+                banded_spd.route_for = route_for
+        if route != "default" and took != [route]:
+            raise SystemExit(f"banded_points: forcing {route} launched {took}")
+        out.append(dict(base, route=route if route != "default" else f"default {took}",
+                        ms=ms, us_per_row=ms * 1e3 / n,
                         ns_per_row_per_lane=ms * 1e6 / (n * B), library_ms=lib_ms,
                         library_note=None if lib_ms is not None else
                         f"not timed: dense matrices and factor need {dense_bytes} bytes",

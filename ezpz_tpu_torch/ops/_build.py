@@ -25,7 +25,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu")
+SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu", "banded_dynamic.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ezpz_tpu_torch"
 
 # IEEE division and sqrt and no FMA contraction keep the kernels' f32
@@ -42,39 +42,90 @@ NVCC_FLAGS = (
 # in csrc/fleet_common.cuh.
 SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
 
-# Capacities of the banded SPD warp kernel (CAPS in csrc/banded_spd.cu),
-# its most lanes (warps) per block (WARPS), its band rows staged ahead
-# (STAGE), the static shared memory a block may declare (STATIC_SMEM), and
-# the widest band of the one-thread-per-lane kernel (LANES_MAX_CAP; the
-# library refuses a wider launch). Wider bands than the last capacity take
-# the general-width kernel.
-BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32, 48, 64)
+# Capacities of the banded SPD warp and one-thread-per-lane kernels (CAPS
+# in csrc/banded_spd.cu), the warp kernel's lanes (warps) per block
+# (WARPS) and its band rows staged ahead (STAGE). Wider bands take the
+# dynamic-width kernel up to its limit for the type (``banded_dyn_max_bw``),
+# the general-width kernel above.
+BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
 BANDED_WARPS = 4
 BANDED_STAGE_ROWS = 4
-BANDED_STATIC_SMEM = 48 * 1024
-BANDED_LANES_MAX_BW = 32
-
-
-def banded_warp_bytes(cap: int, itemsize: int) -> int:
-    """Shared memory of one warp (lane) of the banded warp kernel of
-    capacity ``cap`` (row_stride and warp_elems in csrc/banded_spd.cu): a
-    ring of cap + 1 factor rows and BANDED_STAGE_ROWS staged rows, each
-    padded to a stride of cap + 2 (odd cap: cap + 3) elements."""
-    stride = cap + 2 if cap % 2 == 0 else cap + 3
-    return (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
-
-
-def banded_warps(cap: int, itemsize: int) -> int:
-    """Lanes per block of the warp kernel of capacity ``cap`` (block_warps):
-    the most of BANDED_WARPS, 2 and 1 whose rings fit in
-    BANDED_STATIC_SMEM."""
-    per_warp = banded_warp_bytes(cap, itemsize)
-    return next((w for w in (BANDED_WARPS, 2) if w * per_warp <= BANDED_STATIC_SMEM), 1)
 
 
 def banded_smem_bytes(cap: int, itemsize: int) -> int:
-    """Shared memory of one block of the warp kernel of capacity ``cap``."""
-    return banded_warps(cap, itemsize) * banded_warp_bytes(cap, itemsize)
+    """Shared memory of one block of the banded warp kernel of capacity
+    ``cap`` (row_stride and warp_elems in csrc/banded_spd.cu): per warp, a
+    ring of cap + 1 factor rows and BANDED_STAGE_ROWS staged rows, each
+    padded to a stride of cap + 2 (odd cap: cap + 3) elements."""
+    stride = cap + 2 if cap % 2 == 0 else cap + 3
+    return BANDED_WARPS * (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
+
+
+# The dynamic-width banded kernel (banded_spd_dynamic_kernel): the shared
+# memory a block may use once the kernel opts in (DYN_BLOCK_SMEM, the
+# H100's 227 KB), the least half-bandwidth it takes (two slots a thread),
+# and, for the lanes-a-block model below, the H100's shared memory per SM,
+# the unit a block's shared memory is allocated in, and what each resident
+# block reserves besides.
+BANDED_DYN_BLOCK_SMEM = 232_448
+BANDED_DYN_MIN_BW = 32
+SM_SMEM_BYTES = 233_472
+SMEM_ALLOC_UNIT = 128
+BLOCK_RESERVED_SMEM = 1024
+
+
+def banded_dyn_stride(bw: int) -> int:
+    """Row stride of the dynamic-width kernel's ring in elements
+    (dyn_stride): at least bw + 2, with stride - 1 odd."""
+    return bw + 2 if bw % 2 == 0 else bw + 3
+
+
+def banded_dyn_lane_bytes(bw: int, itemsize: int) -> int:
+    """Shared memory of one lane of the dynamic-width kernel at ``bw``
+    (dyn_lane_bytes): bw + 1 window rows and BANDED_STAGE_ROWS staged rows
+    at ``banded_dyn_stride(bw)``."""
+    return (bw + 1 + BANDED_STAGE_ROWS) * banded_dyn_stride(bw) * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def banded_dyn_max_bw(itemsize: int) -> int:
+    """The widest band whose lane fits one block's BANDED_DYN_BLOCK_SMEM
+    (dyn_max_bw): 237 in f32, 166 in f64."""
+    bw = BANDED_DYN_MIN_BW
+    while banded_dyn_lane_bytes(bw + 1, itemsize) <= BANDED_DYN_BLOCK_SMEM:
+        bw += 1
+    return bw
+
+
+def banded_dyn_block_smem(lanes: int, bw: int, itemsize: int) -> int:
+    """Shared memory an SM gives one block of ``lanes`` lanes of the
+    dynamic-width kernel at ``bw``: the lanes' rings rounded up to
+    SMEM_ALLOC_UNIT, and BLOCK_RESERVED_SMEM."""
+    rings = lanes * banded_dyn_lane_bytes(bw, itemsize)
+    return -(-rings // SMEM_ALLOC_UNIT) * SMEM_ALLOC_UNIT + BLOCK_RESERVED_SMEM
+
+
+def banded_dyn_resident(lanes: int, bw: int, itemsize: int) -> int:
+    """Lanes of the dynamic-width kernel at ``bw`` an SM holds at once in
+    blocks of ``lanes`` where shared memory bounds it (at most 32 blocks
+    and 64 warps); 0 when such a block does not fit."""
+    if lanes * banded_dyn_lane_bytes(bw, itemsize) > BANDED_DYN_BLOCK_SMEM:
+        return 0
+    blocks = SM_SMEM_BYTES // banded_dyn_block_smem(lanes, bw, itemsize)
+    return lanes * min(blocks, 32, 64 // lanes)
+
+
+def banded_dyn_lanes(bw: int, itemsize: int) -> int:
+    """Lanes a block of the dynamic-width kernel at ``bw``, as its launch
+    picks them (dyn_lanes) where shared memory bounds the SM's blocks: of
+    1 to BANDED_WARPS, the count that keeps the most lanes resident
+    (``banded_dyn_resident``), the larger on a tie; 0 past the limit."""
+    best, lanes = 0, 0
+    for w in range(BANDED_WARPS, 0, -1):
+        if banded_dyn_resident(w, bw, itemsize) > best:
+            best, lanes = banded_dyn_resident(w, bw, itemsize), w
+    return lanes
+
 
 _LAUNCHES_LOCK = threading.Lock()
 
@@ -222,6 +273,14 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_banded_spd.restype = i
     lib.ezpz_banded_spd.argtypes = [i, i, p, p, p, p, p,  # f64, lanes, band, rhs, factor, x, fail
                                     i, i, i, i, p]        # B, n, bw, m, stream
+    lib.ezpz_banded_spd_dyn.restype = i
+    lib.ezpz_banded_spd_dyn.argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
+                                        i, i, i, i, p]     # B, n, bw, m, stream
+    for name in ("ezpz_banded_dyn_lane_bytes", "ezpz_banded_dyn_lanes"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i, i]  # bw, f64
+    lib.ezpz_banded_dyn_max_bw.restype = i
+    lib.ezpz_banded_dyn_max_bw.argtypes = [i]
     lib.ezpz_banded_spd_general.restype = i
     lib.ezpz_banded_spd_general.argtypes = [i, p, p, p, p,  # f64, band, rhs, factor, x
                                             p, p,           # sums, fail
@@ -229,7 +288,7 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_banded_capacity.restype = i
     lib.ezpz_banded_capacity.argtypes = [i]
     lib.ezpz_banded_warps.restype = i
-    lib.ezpz_banded_warps.argtypes = [i, i]
+    lib.ezpz_banded_warps.argtypes = []
     lib.ezpz_banded_smem_bytes.restype = i
     lib.ezpz_banded_smem_bytes.argtypes = [i, i]
     if compiled_shapes(lib) != SMALL_SHAPES:
@@ -239,19 +298,40 @@ def load_library() -> ctypes.CDLL:
                            f"{BANDED_CAPACITIES}")
     if banded_plan(lib) != banded_plan():
         raise RuntimeError(f"library banded plan {banded_plan(lib)} != {banded_plan()}")
+    if banded_dyn_plan(lib) != banded_dyn_plan():
+        raise RuntimeError(f"library dynamic-width plan {banded_dyn_plan(lib)} != "
+                           f"{banded_dyn_plan()}")
     return lib
 
 
-def banded_plan(lib=None) -> dict:
-    """{(capacity, itemsize): (lanes per block, shared bytes per block)} of
+def banded_plan(lib=None) -> tuple:
+    """(lanes per block, {(capacity, itemsize): shared bytes per block}) of
     the banded warp kernel: the library's report, or this module's mirror
     when ``lib`` is None."""
     if lib is None:
-        return {(cap, size): (banded_warps(cap, size), banded_smem_bytes(cap, size))
-                for cap in BANDED_CAPACITIES for size in (4, 8)}
-    return {(cap, size): (lib.ezpz_banded_warps(k, int(size == 8)),
-                          lib.ezpz_banded_smem_bytes(k, int(size == 8)))
-            for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
+        return BANDED_WARPS, {(cap, size): banded_smem_bytes(cap, size)
+                              for cap in BANDED_CAPACITIES for size in (4, 8)}
+    return lib.ezpz_banded_warps(), {
+        (cap, size): lib.ezpz_banded_smem_bytes(k, int(size == 8))
+        for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
+
+
+def banded_dyn_plan(lib=None) -> dict:
+    """{itemsize: (widest band, {bw: bytes a lane})} of the dynamic-width
+    kernel, at every width it takes and one past each end (-1 there): the
+    library's report, or this module's mirror when ``lib`` is None."""
+    out = {}
+    for size in (4, 8):
+        f64 = int(size == 8)
+        top = banded_dyn_max_bw(size) if lib is None else lib.ezpz_banded_dyn_max_bw(f64)
+        widths = range(BANDED_DYN_MIN_BW - 1, top + 2)
+        if lib is None:
+            lane = {bw: banded_dyn_lane_bytes(bw, size)
+                    if BANDED_DYN_MIN_BW <= bw <= top else -1 for bw in widths}
+        else:
+            lane = {bw: lib.ezpz_banded_dyn_lane_bytes(bw, f64) for bw in widths}
+        out[size] = (top, lane)
+    return out
 
 
 def banded_capacities(lib) -> tuple:

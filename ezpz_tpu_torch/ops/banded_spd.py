@@ -2,21 +2,24 @@
 
 Replaces the row-per-step ``lax.scan`` passes of
 ``ezpz_tpu.ops.banded.banded_cholesky`` and ``banded_solve``: one launch
-(``csrc/banded_spd.cu``) factors, forward- and back-substitutes B banded
-systems, one warp per lane. Its plain version is
+(``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``) factors, forward- and
+back-substitutes B banded systems, one warp per lane. Its plain version is
 ``ops.banded.banded_spd_reference``, and ``ops.banded.banded_spd_solve``
 dispatches between the two by device.
 
-Every half-bandwidth runs, by one of three kernels that ``route_for``
-names from (B, bw): the warp kernel up to ``_build.BANDED_CAPACITIES[-1]``
-(64), which reads the callers' (B, n, bw+1) band and (B, n, m) right-hand
-sides as they are; the one-thread-per-lane kernel for batches of at least
-``LANES_MIN_BATCH`` lanes of bands up to ``_build.BANDED_LANES_MAX_BW``
-(32), which reads lane-fastest buffers, (row, band entry, lane), into
-which the wrapper transposes; and the general-width kernel for any wider
-band. The wrapper allocates the factor's scratch (and the general kernel's
-running sums), launches on the current stream and raises on a refused
-launch.
+Every half-bandwidth runs, by one of four kernels that ``route_for``
+names from (B, bw, itemsize). Bands up to ``_build.BANDED_CAPACITIES[-1]``
+(32) take the warp kernel, which reads the callers' (B, n, bw+1) band and
+(B, n, m) right-hand sides as they are, or from ``LANES_MIN_BATCH`` lanes
+on the one-thread-per-lane kernel, which reads lane-fastest buffers,
+(row, band entry, lane), into which the wrapper transposes. Wider bands
+take the dynamic-width kernel (the warp kernel's design with the width a
+run-time argument and the window in dynamic shared memory) up to
+``_build.banded_dyn_max_bw(itemsize)`` (237 in f32, 166 in f64), and any
+band past that the general-width kernel (window and running sums in
+device memory). The wrapper allocates the factor's scratch (and the
+general kernel's running sums), launches on the current stream and raises
+on a refused launch.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from . import _build
 
 # Kernel launches made by ``banded_spd_cuda`` in this process, by route
 # (``route_for``); their sum is every launch.
-LAUNCHES = {"warp": 0, "lanes": 0, "general": 0}
+LAUNCHES = {"warp": 0, "lanes": 0, "dynamic": 0, "general": 0}
 
 
 # Batches of at least this many lanes take the one-thread-per-lane kernel.
@@ -42,13 +45,12 @@ LAUNCHES = {"warp": 0, "lanes": 0, "general": 0}
 LANES_MIN_BATCH = 4096
 
 
-def route_for(B: int, bw: int) -> str:
-    """The kernel a batch of ``B`` lanes of half-bandwidth ``bw`` takes:
-    "lanes", "warp" or "general"."""
+def route_for(B: int, bw: int, itemsize: int) -> str:
+    """The kernel a batch of ``B`` lanes of half-bandwidth ``bw`` in
+    ``itemsize``-byte floats takes: "lanes", "warp", "dynamic" or
+    "general"."""
     if bw > _build.BANDED_CAPACITIES[-1]:
-        return "general"
-    if bw > _build.BANDED_LANES_MAX_BW:
-        return "warp"
+        return "dynamic" if bw <= _build.banded_dyn_max_bw(itemsize) else "general"
     return "lanes" if B >= LANES_MIN_BATCH else "warp"
 
 
@@ -56,8 +58,10 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     """The kernel on CUDA ``Ab`` (B, n, bw+1) and ``b`` (B, n) or (B, n, m),
     both float32 or both float64: returns ``(x, fail (B,) bool)`` as
     ``ops.banded.banded_spd_reference`` does, by the kernel
-    ``route_for(B, bw)`` names. Raises when the inputs are not on a CUDA
-    device, ``nvcc`` or the build fails, or the launch is refused."""
+    ``route_for(B, bw, itemsize)`` names. Raises when the inputs are not on
+    a CUDA device, ``nvcc`` or the build fails, or the launch is refused
+    (the dynamic-width kernel's shared-memory attribute or occupancy query
+    included)."""
     if Ab.device.type != "cuda" or b.device != Ab.device:
         raise ValueError(f"banded_spd_cuda takes CUDA tensors on one device, got "
                          f"{Ab.device} and {b.device}")
@@ -73,7 +77,7 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     fail = torch.zeros((B,), dtype=torch.bool, device=Ab.device)
     if B == 0 or n == 0 or m == 0:
         return torch.zeros_like(b), fail
-    route = route_for(B, bw)
+    route = route_for(B, bw, Ab.element_size())
     lanes = route == "lanes"
     if lanes:
         ab_k = Ab.permute(1, 2, 0).contiguous()
@@ -92,6 +96,10 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
                                               lb_k.data_ptr(), x_k.data_ptr(),
                                               sums.data_ptr(), fail.data_ptr(), B, n, bw,
                                               m, stream)
+        elif route == "dynamic":
+            err = lib.ezpz_banded_spd_dyn(f64, ab_k.data_ptr(), rhs_k.data_ptr(),
+                                          lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(), B,
+                                          n, bw, m, stream)
         else:
             err = lib.ezpz_banded_spd(f64, int(lanes), ab_k.data_ptr(), rhs_k.data_ptr(),
                                       lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(),

@@ -23,6 +23,7 @@ version in ``tests/test_torch_cuda.py``.
 """
 
 import os
+import re
 import sys
 
 import numpy as np
@@ -213,20 +214,16 @@ def test_banded_plan_fits_a_block(cap, itemsize):
     """Every capacity's warp kernel, in f32 and f64, holds its rings in one
     block's shared memory: within the H100's 227 KB, and within the 48 KB
     of static shared memory the kernel declares (beyond it the build would
-    need the opt-in attribute), with 4 lanes a block up to capacity 32 and
-    as many of 4, 2 or 1 as fit above; and rows wide enough for the band
-    and one right-hand-side value, at an odd stride minus one."""
-    warps = _build.banded_warps(cap, itemsize)
+    need the opt-in attribute), 4 lanes a block; and rows wide enough for
+    the band and one right-hand-side value, at an odd stride minus one."""
     nbytes = _build.banded_smem_bytes(cap, itemsize)
-    assert nbytes <= 232_448 and nbytes <= _build.BANDED_STATIC_SMEM == 48 * 1024
-    assert warps == 4 if cap <= 32 else warps in (1, 2, 4)
-    per_warp = _build.banded_warp_bytes(cap, itemsize)
-    assert warps == 4 or 2 * warps * per_warp > 48 * 1024
+    assert nbytes <= 232_448 and nbytes <= 48 * 1024
+    assert _build.BANDED_WARPS == 4
     rows = cap + 1 + _build.BANDED_STAGE_ROWS
-    stride = nbytes // (warps * rows * itemsize)
-    assert stride * warps * rows * itemsize == nbytes
+    stride = nbytes // (_build.BANDED_WARPS * rows * itemsize)
+    assert stride * _build.BANDED_WARPS * rows * itemsize == nbytes
     assert stride >= cap + 2 and (stride - 1) % 2 == 1
-    assert _build.banded_plan()[cap, itemsize] == (warps, nbytes)
+    assert _build.banded_plan()[1][cap, itemsize] == nbytes
 
 
 def test_banded_points_help():
@@ -284,12 +281,109 @@ def test_banded_points_cpu_point():
 
 def test_banded_route_by_batch():
     """Bands up to 32 wide take the warp kernel below ``LANES_MIN_BATCH``
-    lanes and the one-thread-per-lane kernel from there; bands 33-64 wide
-    the warp kernel at any batch, wider ones the general-width kernel."""
+    lanes and the one-thread-per-lane kernel from there; wider ones the
+    dynamic-width kernel at any batch (in f32 up to 237) and past it the
+    general-width kernel."""
     cut = banded_spd.LANES_MIN_BATCH
     batches = (1, 1024, cut - 1, cut, 4 * cut)
-    routes = {bw: [banded_spd.route_for(B, bw) for B in batches] for bw in (0, 11, 32, 33, 64, 65)}
+    routes = {bw: [banded_spd.route_for(B, bw, 4) for B in batches]
+              for bw in (0, 11, 32, 33, 64, 65, 238)}
     assert routes == {0: ["warp"] * 3 + ["lanes"] * 2, 11: ["warp"] * 3 + ["lanes"] * 2,
-                      32: ["warp"] * 3 + ["lanes"] * 2, 33: ["warp"] * 5, 64: ["warp"] * 5,
-                      65: ["general"] * 5}
-    assert _build.BANDED_LANES_MAX_BW == 32 and _build.BANDED_CAPACITIES[-1] == 64
+                      32: ["warp"] * 3 + ["lanes"] * 2, 33: ["dynamic"] * 5,
+                      64: ["dynamic"] * 5, 65: ["dynamic"] * 5, 238: ["general"] * 5}
+    assert _build.BANDED_CAPACITIES[-1] == 32
+
+
+# (B, bw, route) at every edge of ``route_for``, per item size: the
+# crossover to the lane kernel (B 4095 / 4096 at bw 32), the warp and lane
+# kernels' width (32 / 33), the old edge of the warp kernel's capacities
+# 48 and 64 (64 / 65), and the dynamic-width kernel's limit for the type
+# and one past it.
+ROUTE_EDGES = {
+    4: [(4095, 32, "warp"), (4096, 32, "lanes"), (1, 33, "dynamic"), (4096, 33, "dynamic"),
+        (1, 64, "dynamic"), (4096, 65, "dynamic"), (1, 237, "dynamic"),
+        (4096, 237, "dynamic"), (1, 238, "general"), (4096, 238, "general")],
+    8: [(4095, 32, "warp"), (4096, 32, "lanes"), (1, 33, "dynamic"), (4096, 33, "dynamic"),
+        (1, 64, "dynamic"), (4096, 65, "dynamic"), (1, 166, "dynamic"),
+        (4096, 166, "dynamic"), (1, 167, "general"), (4096, 167, "general")],
+}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_banded_route_edges(itemsize):
+    """``route_for`` on both sides of each edge, in f32 and f64."""
+    assert banded_spd.LANES_MIN_BATCH == 4096
+    assert [(B, bw, banded_spd.route_for(B, bw, itemsize)) for B, bw, _r in
+            ROUTE_EDGES[itemsize]] == ROUTE_EDGES[itemsize]
+
+
+@pytest.mark.parametrize("itemsize,limit", [(4, 237), (8, 166)])
+def test_banded_dyn_limit(itemsize, limit):
+    """The dynamic-width kernel's widest band per type: its lane fits the
+    232,448 B a block may use once the kernel opts in (the H100's 227 KB),
+    the next band's does not, and a thread's slots at the limit are the
+    kernel's most for the type (8 in f32, 6 in f64)."""
+    assert _build.BANDED_DYN_BLOCK_SMEM == 232_448
+    assert _build.banded_dyn_max_bw(itemsize) == limit
+    assert _build.banded_dyn_lane_bytes(limit, itemsize) <= 232_448
+    assert _build.banded_dyn_lane_bytes(limit + 1, itemsize) > 232_448
+    assert -(-(limit + 1) // 32) == {4: 8, 8: 6}[itemsize]
+    assert _build.banded_dyn_lanes(limit, itemsize) == 1
+    assert _build.banded_dyn_lanes(limit + 1, itemsize) == 0
+
+
+@pytest.mark.parametrize("bw", [32, 35, 48, 64, 65, 67, 100, 128, 166, 237])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_banded_dyn_plan_fits_a_block(bw, itemsize):
+    """The dynamic-width kernel's ring: bw + 1 window rows and the staged
+    rows, each at a stride of at least bw + 2 elements (a band row and one
+    right-hand-side value) with stride - 1 odd (thread d's window read then
+    hits a bank of its own); lanes a block those of 1 to 4 that keep the
+    most lanes resident on an SM under the shared-memory model (blocks
+    allocated in 128-byte units plus 1 KB reserved, of the SM's 228 KB),
+    within the block's 232,448 B. At phase 8w's bw = 67: 20,160 B a lane
+    in f32, 2 lanes a block, 10 lanes an SM (11 one-lane blocks would need
+    11 x (20,224 + 1,024) B); 40,320 B in f64, 1 lane a block, 5 an SM."""
+    stride = _build.banded_dyn_stride(bw)
+    assert stride >= bw + 2 and (stride - 1) % 2 == 1 and stride - bw in (2, 3)
+    lane = _build.banded_dyn_lane_bytes(bw, itemsize)
+    assert lane == (bw + 1 + _build.BANDED_STAGE_ROWS) * stride * itemsize
+    lanes = _build.banded_dyn_lanes(bw, itemsize)
+    if bw > _build.banded_dyn_max_bw(itemsize):
+        assert lanes == 0
+        return
+    assert 1 <= lanes <= 4 and lanes * lane <= 232_448
+    block = _build.banded_dyn_block_smem(lanes, bw, itemsize)
+    assert block % 128 == 1024 % 128 and lanes * lane + 1024 <= block < lanes * lane + 1152
+    resident = {w: _build.banded_dyn_resident(w, bw, itemsize) for w in range(1, 5)}
+    assert resident[lanes] == max(resident.values()) > 0
+    assert all(resident[w] < resident[lanes] for w in range(lanes + 1, 5))
+    assert resident[lanes] * block // lanes <= 233_472
+    if bw == 67:
+        assert (lane, lanes, resident[lanes]) == {4: (20_160, 2, 10), 8: (40_320, 1, 5)}[itemsize]
+
+
+def test_banded_sources_match_build_module():
+    """The banded kernels' constants in the CUDA sources are the build
+    module's mirror: the capacities, lanes a block and staged rows
+    (``banded_spd.cu``, ``banded_common.cuh``), and the dynamic-width
+    kernel's block limit and per-type widest bands (``banded_dynamic.cu``,
+    whose static_assert holds them at compile time); and the build
+    compiles both sources."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "ezpz_tpu_torch", "csrc")
+    read = lambda name: open(os.path.join(csrc, name)).read()  # noqa: E731
+    caps = re.search(r"constexpr int CAPS\[\] = \{(.*?)\};", read("banded_spd.cu")).group(1)
+    assert tuple(int(c) for c in caps.split(",")) == _build.BANDED_CAPACITIES
+    common = read("banded_common.cuh")
+    assert int(re.search(r"constexpr int WARPS = (\d+);", common).group(1)) == _build.BANDED_WARPS
+    assert int(re.search(r"constexpr int STAGE = (\d+);", common).group(1)) == \
+        _build.BANDED_STAGE_ROWS
+    dyn = read("banded_dynamic.cu")
+    assert int(re.search(r"constexpr int DYN_BLOCK_SMEM = (\d+);", dyn).group(1)) == \
+        _build.BANDED_DYN_BLOCK_SMEM
+    limits = re.search(r"static_assert\(dyn_max_bw<float>\(\) == (\d+) && "
+                       r"dyn_max_bw<double>\(\) == (\d+)", dyn).groups()
+    assert tuple(int(v) for v in limits) == (_build.banded_dyn_max_bw(4),
+                                             _build.banded_dyn_max_bw(8))
+    assert {"banded_spd.cu", "banded_dynamic.cu"} <= set(_build.SOURCES)

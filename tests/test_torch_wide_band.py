@@ -5,7 +5,7 @@ right (``coupled_bench.moved_parts``) widens the boundary's band of the
 ``coupled`` chain to a half-bandwidth of 35. ``boundary_solver="auto"`` resolves it to the
 banded boundary in both packages, whose rule has no cap on the width: so
 the port's banded solve must answer at every width that JAX's does. On the
-card that is the warp kernel's capacity 48; here, on the CPU, the plain
+card that is the dynamic-width kernel; here, on the CPU, the plain
 version ``banded_spd_reference`` (which the kernels equal bit for bit).
 
 What must hold, and why (as ``tests/test_torch_block_schur.py``): the
@@ -16,10 +16,10 @@ accept); x within 1e-9 (f64) and 1e-6 (mixed): the chain is fully
 constrained. Each JAX solve is compiled once for the module (~16 s each).
 
 Beside it, the plain banded solve alone against JAX's
-``ezpz_tpu.ops.banded.banded_spd_solve`` (``plain_matches_jax``) at the
-warp kernel's widths above 32: bw 33, 48 and 64 (its capacities 48 and 64
-and their edges); ``tests/test_torch_wide_band_general.py`` takes the
-general-width kernel's (65, 100). Seeded diagonally dominant bands of
+``ezpz_tpu.ops.banded.banded_spd_solve`` (``plain_matches_jax``) at bw
+33, 48 and 64 (the edges of the warp kernel's former capacities 48 and
+64, which the dynamic-width kernel took over);
+``tests/test_torch_wide_band_general.py`` takes 65 and 100. Seeded diagonally dominant bands of
 n = bw + 20 rows and B = 2 lanes, lane 1 with a negative pivot: fail flags
 equal, the failed lane zero in both, and x within 1e-12 of the largest
 |x| in f64 (JAX sums the diagonal's squares with ``jnp.sum`` and XLA may
