@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the result line):
 1. the card (``nvidia-smi`` name and power limit) and the CUDA runtime;
    no GPU, no run;
 2. build the kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``,
-   ``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``) with nvcc, one
-   compiler per source, all started together, and print
+   ``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``,
+   ``csrc/banded_lanes.cu``) with nvcc, one compiler per source, all
+   started together, and print
    each instantiation's registers, stack frame and spills, and the fleet
    kernels' resident threads per SM;
 3. the fused kernel against its plain PyTorch version on the card, on every
@@ -101,9 +102,12 @@ Phases (any failure exits non-zero before the result line):
    ``textual.Problem`` and ``parallel.BlockSchurSolver(n_parts=120,
    boundary_solver="banded", precision="mixed")``, 1024 copies (guesses
    moved by seeded N(0, 1e-3)); structure P, m, kb, n_b, bw = 120, 16, 12,
-   952, 11. Counts from zero: the banded kernel (``csrc/banded_spd.cu``)
-   launched; every lane converged and satisfied, the f64 residual
+   952, 11. Counts from zero: the banded kernel launched (the
+   one-thread-per-lane kernel, ``csrc/banded_lanes.cu``, whose route takes
+   bw 11 at every batch); every lane converged and satisfied, the f64 residual
    recomputed by ``residual_and_flags`` <= 1e-8. Held against the same
+   solve with the warp kernel's route forced (``csrc/banded_spd.cu``,
+   whose route the lane kernel takes at bw 11: bit for bit), the same
    solve with the plain banded version on the card (flags and iterations
    equal, x within 1e-6), a second identical run (bit for bit), the dense
    and CG boundaries at 64 copies (flags equal, iterations equal for
@@ -116,9 +120,9 @@ Phases (any failure exits non-zero before the result line):
    ``solve_batch`` under ``torch.profiler``, peak memory, and the kernel
    alone on the first boundary solve's band against its plain version and
    the dense ``cholesky_ex`` + ``cholesky_solve`` of the same matrix, in
-   f32 and f64;
+   f32 and f64, the warp kernel forced beside it;
 8l. the one-thread-per-lane route on the main path (``phase8_lanes``):
-   phase 8's chain at 8192 copies (past ``LANES_MIN_BATCH``) through
+   phase 8's chain at 8192 copies through
    ``BlockSchurSolver(boundary_solver="auto")`` (banded, mixed), counts
    from zero, phase 8's gate, the ``"lanes"`` route launched; the lane
    kernel alone on the run's first band (B = 8192, n = 952, bw = 11):
@@ -141,7 +145,11 @@ Phases (any failure exits non-zero before the result line):
    mixed through the dynamic-width kernel with the same gate, the same run
    with the general-width kernel forced, and the dynamic-width kernel alone
    on the first run's band (``phase8_kernel`` again), the general-width
-   kernel forced on that band, bit-equal and timed beside it;
+   kernel forced on that band, bit-equal and timed beside it; last every
+   4th part moved 2 (bw = 27, past the lane kernel's 16) in mixed through
+   the warp kernel's own route with the same gate, and the warp kernel
+   alone on that run's first band in f32 (bit-equal to the plain version,
+   the library, the bound);
 9. the single-device remainder (``phase9``):
    (a) ``parallel.FleetSolver`` over every visible card on the main path
    (the massive fixture x 8192, both buckets, mixed + fused): counts from
@@ -199,7 +207,7 @@ Phases (any failure exits non-zero before the result line):
    as one process each.
 
 The line before the last is a JSON record per kernel: launches in its main
-path's run (the banded kernel: phase 8's and phase 10a's runs), max
+path's run, max
 |x_kernel - x_plain| at the main path's shapes, ms per main-path solve (the
 banded kernel: per call, at phase 8's operating point) for the kernel and
 for its plain version (CUDA events, median of 5; the banded plain version
@@ -208,10 +216,12 @@ larger of the bytes each kernel must move over 3.35 TB/s and a lower
 bound of its operations over 67 TFLOP/s in f32 and 34 TFLOP/s in f64,
 counted from this run's inputs and iteration counts). No single PyTorch
 call computes an LM fleet solve, so the fleet kernels' ``library_ms`` is
-null; the banded kernel's is the dense Cholesky factorization and solve
-of the same matrix. The banded kernel's other routes are records of their
-own: ``banded_spd_lanes`` (the one-thread-per-lane kernel at phase 8l's
-band; its launches), ``banded_spd_wide`` (the dynamic-width kernel at
+null; the banded kernels' is the dense Cholesky factorization and solve
+of the same matrix. The banded kernels are records of their own:
+``banded_spd`` (the warp kernel at phase 8w's bw = 27 band; that run's
+launches), ``banded_spd_lanes`` (the
+one-thread-per-lane kernel at phase 8l's band; the launches of phase 8's,
+8l's and 10a's runs), ``banded_spd_wide`` (the dynamic-width kernel at
 phase 8w's bw = 35 band; launches of its mixed, f64 and sharded runs),
 ``banded_spd_dynamic`` (the dynamic-width kernel at the bw = 67 run's
 band; its launches) and ``banded_spd_general`` (the general-width kernel
@@ -1803,18 +1813,34 @@ def phase8(dev, card):
     torch.cuda.reset_peak_memory_stats()
     res, sat = solver.solve_batch(x0s)
     torch.cuda.synchronize()
-    launches = sum(banded_spd.LAUNCHES.values())
+    routes = dict(banded_spd.LAUNCHES)
+    launches = routes["lanes"]
     peak = torch.cuda.max_memory_allocated()
     r, _deg = solver.system.residual_and_flags(res.x)
     rmax = float(r.abs().max())
     conv, sat_all = bool(res.converged.all()), bool(sat.all())
     print(f"phase8 gate: {COUPLED_COPIES} copies, converged={conv} satisfied={sat_all} "
           f"f64_residual_max={rmax!r} iterations {int(res.iterations.min())}-"
-          f"{int(res.iterations.max())}; launches: banded_spd={launches}; peak device "
+          f"{int(res.iterations.max())}; banded launches by route {routes}; peak device "
           f"memory {peak!r} bytes", flush=True)
     if not (conv and sat_all and rmax <= 1e-8) or launches == 0:
         raise SystemExit("chip_smoke: phase8 main path failed its gate or never "
-                         "launched the banded kernel")
+                         "launched the banded kernel's lanes route")
+
+    # The same run with the warp kernel's route forced: bit for bit (both
+    # kernels are the plain version's arithmetic). A check only: the warp
+    # kernel's record is phase 8w's main-path run at bw = 27.
+    with forced_route("warp"):
+        banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+        warp_res, warp_sat = solver.solve_batch(x0s)
+        torch.cuda.synchronize()
+        warp_launches = banded_spd.LAUNCHES["warp"]
+    same = (torch.equal(warp_res.x, res.x) and torch.equal(warp_res.iterations, res.iterations)
+            and torch.equal(warp_sat, sat))
+    print(f"phase8 warp route forced: {warp_launches} warp launches, bit-equal to the lanes "
+          f"route's run: {same}", flush=True)
+    if not same or warp_launches == 0:
+        raise SystemExit("chip_smoke: phase8 with the warp route forced differs")
 
     # A second identical run (capturing the first boundary solve's inputs):
     # equal bit for bit.
@@ -1873,9 +1899,9 @@ def phase8(dev, card):
           f"{[round(t * 1e3, 3) for t in lat]} ms; card: {card}", flush=True)
     print(f"phase8 profiled solve_batch: {profiled(lambda: solver.solve_batch(x0s))}",
           flush=True)
-    rec = phase8_kernel(*captured[0], card)
+    rec = phase8_kernel(*captured[0], card, forced=("warp",))
     print(f"phase8 ok: {time.perf_counter() - t_start:.1f} s", flush=True)
-    return dict(launches=launches, **rec)
+    return dict(rec, launches=launches)
 
 
 # Phase 8l: phase 8's chain at LANES_COPIES copies, past
@@ -1957,6 +1983,10 @@ WIDE_MAP = (4, 3)
 WIDE_STRUCTURE = (952, 35, "banded")
 GENERAL_MAP = (8, 7)
 GENERAL_STRUCTURE = (952, 67, "banded")
+# Every 4th part moved 2 to its right widens the band to 27: past the lane
+# kernel's widest capacity (16), so the warp kernel takes it at any batch.
+WARP_MAP = (4, 2)
+WARP_STRUCTURE = (952, 27, "banded")
 
 
 def wide_solve(cons, n, x0s, part_of_var, structure, precision, dev, card, label, route,
@@ -2014,8 +2044,11 @@ def phase8w(dev, card):
     chain moved by GENERAL_MAP (bw = 67) through the dynamic-width kernel,
     the same run with the general-width kernel forced, and the
     dynamic-width kernel alone on the first run's band (``phase8_kernel``,
-    the general-width kernel forced beside it). Returns the kernels line's
-    records of the three wide routes."""
+    the general-width kernel forced beside it); last the chain moved by
+    WARP_MAP (bw = 27) through the warp kernel, and that kernel alone on
+    its first band in f32 (phase 8's forced run holds it in f64). Returns
+    the kernels line's records of the three wide routes and the warp
+    kernel's."""
     import numpy as np
     import torch
 
@@ -2081,8 +2114,16 @@ def phase8w(dev, card):
         force="general")
     dyn = phase8_kernel(*gband, card, label="phase8w dynamic-width kernel", forced=("general",))
     general = dict(dyn, launches=general_launches, **dyn["forced"]["general"])
+
+    # The warp kernel on the main path (its own route at bw = 27).
+    w = coupled_bench.moved_parts(n, COUPLED_PARTS, *WARP_MAP)
+    _res, warp_band, warp_launches, _solver = wide_solve(
+        cons, n, x0s, w, WARP_STRUCTURE, "mixed", dev, card, "phase8w warp", "warp")
+    warp = phase8_kernel(*warp_band, card, label="phase8w warp kernel at bw = 27",
+                         dtypes=(torch.float32,))
     print(f"phase8w ok: {time.perf_counter() - t_start:.1f} s", flush=True)
-    return (dict(wide, launches=wide_launches), dict(dyn, launches=dyn_launches), general)
+    return (dict(wide, launches=wide_launches), dict(dyn, launches=dyn_launches), general,
+            dict(warp, launches=warp_launches))
 
 
 # Phase 9: the single-device remainder.
@@ -2485,8 +2526,8 @@ def phase10ab(dev, card):
     100,000-variable chain (``ShardedBlockSchurSolver``, banded, mixed) and
     the 100,004-variable hub (CG), with the chain in f64 and, as the
     witness of what rounding costs in trips, with the dense boundary.
-    Returns the chain's banded launches (mixed and f64) and the first
-    boundary solve's (band, rhs) of each."""
+    Returns the chain's banded launches (mixed and f64, every one on the
+    lanes route) and the first boundary solve's (band, rhs) of each."""
     import torch
 
     from ezpz_tpu_torch import dryrun, fixtures
@@ -2545,7 +2586,11 @@ def phase10ab(dev, card):
         raise SystemExit("chip_smoke: phase10b ran no CG trip")
     bands = [tuple(torch.as_tensor(t, device=dev) for t in rep["captured"])
              for rep in (rep_a, rep_f64)]
-    return rep_a["banded_launches"] + rep_f64["banded_launches"], bands
+    routes = [rep["banded_routes"] for rep in (rep_a, rep_f64)]
+    print(f"phase10a banded launches by route (mixed, f64): {routes}", flush=True)
+    if any(r["lanes"] != sum(r.values()) for r in routes):
+        raise SystemExit("chip_smoke: phase10a launched a banded route other than lanes")
+    return sum(r["lanes"] for r in routes), bands
 
 
 def phase10c(dev, card):
@@ -2621,7 +2666,8 @@ def phase10_band(bands, card):
     """The banded kernel alone at 10a's operating point (B = 1, n_b =
     19,992): the mixed run's first band in f32 and the f64 run's in f64,
     each against its plain version on the card at full size and against
-    the dense library solve (``phase8_kernel``). Then whether the f32 band
+    the dense library solve, the warp kernel forced beside the lane
+    kernel's route (``phase8_kernel``). Then whether the f32 band
     cast to f64 still has a Cholesky factor (its softest mode against f32
     rounding), and how the plain version on the host CPU parts from the
     kernel: PyTorch's CPU sqrt is not correctly rounded (counted against
@@ -2633,8 +2679,10 @@ def phase10_band(bands, card):
     from ezpz_tpu_torch.ops import banded
 
     (band32, rhs32), (band64, rhs64) = bands
-    phase8_kernel(band32, rhs32, card, label="phase10a", dtypes=(torch.float32,))
-    phase8_kernel(band64, rhs64, card, label="phase10a", dtypes=(torch.float64,))
+    phase8_kernel(band32, rhs32, card, label="phase10a", dtypes=(torch.float32,),
+                  forced=("warp",))
+    phase8_kernel(band64, rhs64, card, label="phase10a", dtypes=(torch.float64,),
+                  forced=("warp",))
     _x, fail64 = banded.banded_spd_solve(band32.double(), rhs32.double())
     x, _fail = banded.banded_spd_solve(band32, rhs32)
     t0 = time.perf_counter()
@@ -2655,7 +2703,7 @@ def phase10_band(bands, card):
 
 
 def phase10(dev, card):
-    """The collective slice on the card. Returns the banded kernel's
+    """The collective slice on the card. Returns the lane kernel's
     launches on the sharded chain's runs."""
     t_start = time.perf_counter()
     launches, bands = phase10ab(dev, card)
@@ -2749,19 +2797,20 @@ def main() -> int:
     phase7(dev, card, full, api_us)
     band = phase8(dev, card)
     lanes = phase8_lanes(dev, card)
-    wide, dynamic, general = phase8w(dev, card)
+    wide, dynamic, general, warp = phase8w(dev, card)
     phase9(dev, card)
     launches = phase10(dev, card)
-    # The banded kernel's record is phase 8's operating point's; its
-    # launches are those of both of its main-path runs. Its wide routes
-    # (phase 8w) are records of their own.
-    band = dict(band, launches=band["launches"] + launches)
+    # The warp kernel's record: phase 8w's main-path run at bw = 27. The
+    # lane kernel's: phase 8l's band, the launches of the three main-path
+    # runs it takes (phase 8, 8l and 10a). The wide routes (phase 8w) are
+    # records of their own.
+    lanes = dict(lanes, launches=lanes["launches"] + band["launches"] + launches)
     kernels = []
     for name, rec, source, replaces in (
             ("fused_fleet", fused, "fused_fleet", "ezpz_tpu/ops/pallas_fleet.py:898"),
             ("coarse_fleet", coarse, "coarse_fleet", "ezpz_tpu/ops/pallas_fleet.py:598"),
-            ("banded_spd", band, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
-            ("banded_spd_lanes", lanes, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd", warp, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("banded_spd_lanes", lanes, "banded_lanes", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_wide", wide, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_dynamic", dynamic, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_general", general, "banded_spd", "ezpz_tpu/ops/banded.py:37")):

@@ -11,15 +11,27 @@ the factor's and both substitutions' operations, the formula of
 ``cholesky_solve`` of the same matrices where they fit, and a hash of x
 (two trees' kernels must agree bit for bit). Beside the wrapper's own
 route, every kernel that takes the band is timed with the route forced
-(``banded_spd.route_for`` replaced for those calls): up to 32 the warp and
-the one-thread-per-lane kernels, wider the warp kernel up to 64, the
-dynamic-width kernel and the general-width kernel. It uses only the
-wrapper's call, its route function and launch counts, so it also runs
-against older checkouts (parent, change, change, parent in one call).
+(``banded_spd.route_for`` replaced for those calls): up to 32 the warp
+kernel, up to 16 the one-thread-per-lane kernel (older checkouts' up to
+32), from 32 the dynamic-width kernel up to its limit, and the
+general-width kernel at any width (the ``crossover`` sweep only the warp
+and lane kernels). It uses only the wrapper's call, its route function
+and launch counts, so it also runs against older checkouts (parent,
+change, change, parent in one call).
 
     python -m ezpz_tpu_torch.benches.banded_points                      # the card
+    python -m ezpz_tpu_torch.benches.banded_points --sweep lanes        # the lane kernel's A/B
+    python -m ezpz_tpu_torch.benches.banded_points --sweep crossover    # LANES_MIN_BATCH's
     python -m ezpz_tpu_torch.benches.banded_points --points 1024:952:11 --dtypes f64
     python -m ezpz_tpu_torch.benches.banded_points --cpu --points 3:20:2  # plain version
+
+The named sweeps: ``lanes``, the lane kernel against the warp kernel at
+n = 952 (phase 8's boundary), B of 2,048 to 16,384 at bw = 11 and B =
+8,192 at bw 4, 16, 24 and 32 (past 16 the lane kernel has no capacity:
+the warp kernel alone, and older checkouts' lane kernel); ``crossover``,
+the warp and lane kernels alone at B of 32 to 8,192 at the top width of
+every lane capacity (bw = capacity), which
+``ops/banded_spd.LANES_MIN_BATCH`` is read from.
 
 ``--cpu`` runs the plain version on the host CPU with the host clock; its
 times are the CPU's, not the card's.
@@ -39,6 +51,15 @@ import numpy as np
 import torch
 
 DEFAULT_POINTS = ("1024:952:11", "1:19992:11", "8192:952:11")
+SWEEPS = {
+    "lanes": ("2048:952:11", "4096:952:11", "8192:952:11", "16384:952:11", "8192:952:4",
+              "8192:952:16", "8192:952:24", "8192:952:32"),
+    "crossover": tuple(f"{B}:952:{cap}" for cap in (1, 2, 4, 8, 12, 16)
+                       for B in (32, 256, 1024, 2048, 4096, 8192)),
+}
+# The routes a sweep forces besides the wrapper's own (every route that
+# takes the band where a sweep is not named).
+SWEEP_ROUTES = {"crossover": {"warp", "lanes"}}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 # The H100's published rates (NVIDIA's data sheet, SXM): HBM bytes/s and
 # f32 / f64 operations/s outside the tensor cores.
@@ -130,9 +151,10 @@ def parse_point(text: str):
     return B, n, bw
 
 
-def measure(B, n, bw, dtype, device, reps, seed):
-    """The records of one point and dtype: one per route on the card, one
-    for the plain version on the CPU."""
+def measure(B, n, bw, dtype, device, reps, seed, keep=None):
+    """The records of one point and dtype: one per route on the card (the
+    routes in ``keep`` only, when given), one for the plain version on the
+    CPU."""
     from ezpz_tpu_torch.ops import _build, banded, banded_spd
 
     Ab, b = make_band(B, n, bw, dtype, device, seed)
@@ -154,14 +176,15 @@ def measure(B, n, bw, dtype, device, reps, seed):
     launches = getattr(banded_spd, "LAUNCHES", None)
     routes = ["default"]
     if isinstance(launches, dict) and hasattr(banded_spd, "route_for"):
+        lanes_capacity = getattr(banded_spd, "lanes_capacity", None)
         takes = {
-            "lanes": bw <= getattr(_build, "BANDED_LANES_MAX_BW", 32),
+            "lanes": bw <= 32 if lanes_capacity is None else lanes_capacity(bw) is not None,
             "warp": bw <= getattr(_build, "BANDED_CAPACITIES", (32,))[-1],
             "dynamic": hasattr(_build, "banded_dyn_max_bw")
             and 32 <= bw <= _build.banded_dyn_max_bw(Ab.element_size()),
             "general": True,
         }
-        routes += [r for r in launches if takes.get(r, False)]
+        routes += [r for r in launches if takes.get(r, False) and (keep is None or r in keep)]
     out = []
     lib_ms = None
     dense_bytes = 2 * B * n * n * Ab.element_size()
@@ -208,13 +231,18 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--points", nargs="+", type=parse_point,
                     default=[parse_point(p) for p in DEFAULT_POINTS],
-                    help="operating points B:n:bw (default: %(default)s)")
+                    help="operating points B:n:bw (default: " + " ".join(DEFAULT_POINTS) + ")")
+    ap.add_argument("--sweep", choices=sorted(SWEEPS),
+                    help="a named set of points in place of --points")
     ap.add_argument("--dtypes", default="f32,f64", help="comma-separated f32, f64")
     ap.add_argument("--reps", type=int, default=5, help="timed calls per median")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
                     help="the plain version on the host CPU (host clock)")
     args = ap.parse_args(argv)
+    if args.sweep:
+        args.points = [parse_point(p) for p in SWEEPS[args.sweep]]
+    keep = SWEEP_ROUTES.get(args.sweep)
     dtypes = [DTYPES[d] for d in args.dtypes.split(",")]
     if args.cpu:
         device, card = "cpu", "host CPU (plain version)"
@@ -226,7 +254,7 @@ def main(argv=None) -> list:
     records = []
     for B, n, bw in args.points:
         for dtype in dtypes:
-            for rec in measure(B, n, bw, dtype, device, args.reps, args.seed):
+            for rec in measure(B, n, bw, dtype, device, args.reps, args.seed, keep):
                 rec["card"] = card
                 records.append(rec)
                 lib = (f"{rec['library_ms']!r} ms" if rec.get("library_ms") is not None

@@ -140,7 +140,8 @@ def run_cases(cases):
     per call, synchronised), ``agree`` (every rank's outcome equal to rank
     0's, by a hash), ``reps_equal`` (every rep's outcome equal to the
     first's), ``history`` (the two-level solver's max|r| per trip),
-    ``banded_launches`` (in the last rep) and ``peak_bytes`` (on
+    ``banded_launches`` and ``banded_routes`` (the banded kernel's launches
+    in the last rep, and the same by route) and ``peak_bytes`` (on
     a card: peak device memory of the step), ``captured``, ``setup_s`` (the
     solver's construction) and ``profile`` (``_profiled``'s summary)."""
     from .ops import banded_spd
@@ -177,6 +178,7 @@ def run_cases(cases):
                 digests.append(_digest(out))
             report = dict(out=out, counts=solver.counts(), ms=ms,
                           banded_launches=sum(banded_spd.LAUNCHES.values()),
+                          banded_routes=dict(banded_spd.LAUNCHES),
                           peak_bytes=(torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
                           captured=captured, setup_s=setup_s,

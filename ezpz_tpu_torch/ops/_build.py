@@ -25,7 +25,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu", "banded_dynamic.cu")
+SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu", "banded_dynamic.cu",
+           "banded_lanes.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ezpz_tpu_torch"
 
 # IEEE division and sqrt and no FMA contraction keep the kernels' f32
@@ -42,15 +43,13 @@ NVCC_FLAGS = (
 # in csrc/fleet_common.cuh.
 SMALL_SHAPES = ((1, 1), (2, 2), (4, 4), (8, 8))
 
-# Capacities of the banded SPD warp and one-thread-per-lane kernels (CAPS
-# in csrc/banded_spd.cu), the warp kernel's lanes (warps) per block
-# (WARPS) and its band rows staged ahead (STAGE). Wider bands take the
-# dynamic-width kernel up to its limit for the type (``banded_dyn_max_bw``),
-# the general-width kernel above.
+# Capacities of the banded SPD warp kernel (CAPS in csrc/banded_spd.cu),
+# its lanes (warps) per block (WARPS) and its band rows staged ahead
+# (STAGE). Wider bands take the dynamic-width kernel up to its limit for
+# the type (``banded_dyn_max_bw``), the general-width kernel above.
 BANDED_CAPACITIES = (1, 2, 4, 8, 12, 16, 24, 32)
 BANDED_WARPS = 4
 BANDED_STAGE_ROWS = 4
-
 
 def banded_smem_bytes(cap: int, itemsize: int) -> int:
     """Shared memory of one block of the banded warp kernel of capacity
@@ -59,6 +58,59 @@ def banded_smem_bytes(cap: int, itemsize: int) -> int:
     padded to a stride of cap + 2 (odd cap: cap + 3) elements."""
     stride = cap + 2 if cap % 2 == 0 else cap + 3
     return BANDED_WARPS * (cap + 1 + BANDED_STAGE_ROWS) * stride * itemsize
+
+
+# Capacities of the one-thread-per-lane kernel, in f32 and f64 (LANE_CAPS
+# in csrc/banded_lanes.cu): the ones ``ops/banded_spd.route_for`` sends
+# there; wider bands take the warp kernel.
+BANDED_LANES_CAPACITIES = (1, 2, 4, 8, 12, 16)
+# Its shared-memory plan (LanePlan in csrc/banded_lanes.cu): the lane
+# pitch of the staged right-hand side, the records a backward group
+# brings, and the fewest and most groups in its ring.
+BANDED_LANES_PITCH = 33
+BANDED_LANES_GROUP = 4
+BANDED_LANES_GROUPS = (4, 8)
+
+
+def banded_lanes_stage_rows(cap: int, itemsize: int) -> int:
+    """Band rows a stage group of the lane kernel (LanePlan::G): 8 in f32,
+    4 in f64."""
+    return 4 if itemsize == 8 else 8
+
+
+def _lanes_factor_bytes(cap: int, itemsize: int) -> int:
+    """The factor pass's buffers: the window (cap slots of cap + 2 values:
+    entries 1..cap-1, diagonal, reciprocal, y) and two stage buffers (32
+    lanes' 16-byte-aligned spans of G (cap + 1) values, each an odd number
+    of 16-byte units, and the right-hand side at lane pitch 33), 32 lanes
+    each."""
+    r16 = lambda b: -(-b // 16) * 16  # noqa: E731
+    g = banded_lanes_stage_rows(cap, itemsize)
+    span = r16(g * (cap + 1) * itemsize + 15)
+    lane_run = span if (span // 16) % 2 else span + 16
+    stage = 32 * lane_run + r16(g * BANDED_LANES_PITCH * itemsize)
+    return cap * (cap + 2) * 32 * itemsize + 2 * stage
+
+
+def banded_lanes_ring(cap: int, itemsize: int) -> int:
+    """Records in the lane kernel's backward ring (LanePlan::RS): groups of
+    BANDED_LANES_GROUP records, as many as the factor pass's buffers hold
+    beside the doubled history, within BANDED_LANES_GROUPS."""
+    rec = (cap + 2) * 32 * itemsize
+    hist = 2 * cap * 32 * itemsize
+    fit = (_lanes_factor_bytes(cap, itemsize) - hist) // rec // BANDED_LANES_GROUP
+    lo, hi = BANDED_LANES_GROUPS
+    return BANDED_LANES_GROUP * min(max(fit, lo), hi)
+
+
+def banded_lanes_smem_bytes(cap: int, itemsize: int) -> int:
+    """Shared memory of one block (one warp, 32 lanes) of the lane kernel
+    at capacity ``cap`` (LanePlan::BYTES): the larger of the factor pass's
+    buffers and the backward pass's ring (``banded_lanes_ring`` records of
+    cap + 2 values) with its doubled history (2 cap values), 32 lanes
+    each."""
+    solve = (banded_lanes_ring(cap, itemsize) * (cap + 2) + 2 * cap) * 32 * itemsize
+    return max(_lanes_factor_bytes(cap, itemsize), solve)
 
 
 # The dynamic-width banded kernel (banded_spd_dynamic_kernel): the shared
@@ -270,9 +322,14 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_small_shape.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.ezpz_cuda_error_string.restype = ctypes.c_char_p
     lib.ezpz_cuda_error_string.argtypes = [i]
-    lib.ezpz_banded_spd.restype = i
-    lib.ezpz_banded_spd.argtypes = [i, i, p, p, p, p, p,  # f64, lanes, band, rhs, factor, x, fail
-                                    i, i, i, i, p]        # B, n, bw, m, stream
+    for name in ("ezpz_banded_spd", "ezpz_banded_spd_lanes"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
+                                       i, i, i, i, p]     # B, n, bw, m, stream
+    lib.ezpz_banded_lanes_capacity.restype = i
+    lib.ezpz_banded_lanes_capacity.argtypes = [i]  # k
+    lib.ezpz_banded_lanes_smem_bytes.restype = i
+    lib.ezpz_banded_lanes_smem_bytes.argtypes = [i, i]  # capacity, f64
     lib.ezpz_banded_spd_dyn.restype = i
     lib.ezpz_banded_spd_dyn.argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
                                         i, i, i, i, p]     # B, n, bw, m, stream
@@ -298,6 +355,9 @@ def load_library() -> ctypes.CDLL:
                            f"{BANDED_CAPACITIES}")
     if banded_plan(lib) != banded_plan():
         raise RuntimeError(f"library banded plan {banded_plan(lib)} != {banded_plan()}")
+    if banded_lanes_plan(lib) != banded_lanes_plan():
+        raise RuntimeError(f"library lane-kernel plan {banded_lanes_plan(lib)} != "
+                           f"{banded_lanes_plan()}")
     if banded_dyn_plan(lib) != banded_dyn_plan():
         raise RuntimeError(f"library dynamic-width plan {banded_dyn_plan(lib)} != "
                            f"{banded_dyn_plan()}")
@@ -314,6 +374,20 @@ def banded_plan(lib=None) -> tuple:
     return lib.ezpz_banded_warps(), {
         (cap, size): lib.ezpz_banded_smem_bytes(k, int(size == 8))
         for k, cap in enumerate(banded_capacities(lib)) for size in (4, 8)}
+
+
+def banded_lanes_plan(lib=None) -> dict:
+    """{itemsize: {capacity: shared bytes a block}} of the lane kernel:
+    the library's report (its capacities and each one's plan), or this
+    module's mirror when ``lib`` is None."""
+    if lib is None:
+        return {size: {cap: banded_lanes_smem_bytes(cap, size) for cap in BANDED_LANES_CAPACITIES}
+                for size in (4, 8)}
+    caps = []
+    while (cap := lib.ezpz_banded_lanes_capacity(len(caps))) >= 0:
+        caps.append(cap)
+    return {size: {cap: lib.ezpz_banded_lanes_smem_bytes(cap, int(size == 8)) for cap in caps}
+            for size in (4, 8)}
 
 
 def banded_dyn_plan(lib=None) -> dict:

@@ -2,19 +2,19 @@
 
 Replaces the row-per-step ``lax.scan`` passes of
 ``ezpz_tpu.ops.banded.banded_cholesky`` and ``banded_solve``: one launch
-(``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``) factors, forward- and
-back-substitutes B banded systems, one warp per lane. Its plain version is
-``ops.banded.banded_spd_reference``, and ``ops.banded.banded_spd_solve``
-dispatches between the two by device.
+(``csrc/banded_spd.cu``, ``csrc/banded_lanes.cu``,
+``csrc/banded_dynamic.cu``) factors, forward- and back-substitutes B
+banded systems. Its plain version is ``ops.banded.banded_spd_reference``,
+and ``ops.banded.banded_spd_solve`` dispatches between the two by device.
 
 Every half-bandwidth runs, by one of four kernels that ``route_for``
-names from (B, bw, itemsize). Bands up to ``_build.BANDED_CAPACITIES[-1]``
-(32) take the warp kernel, which reads the callers' (B, n, bw+1) band and
-(B, n, m) right-hand sides as they are, or from ``LANES_MIN_BATCH`` lanes
-on the one-thread-per-lane kernel, which reads lane-fastest buffers,
-(row, band entry, lane), into which the wrapper transposes. Wider bands
-take the dynamic-width kernel (the warp kernel's design with the width a
-run-time argument and the window in dynamic shared memory) up to
+names from (B, bw, itemsize); each reads the callers' (B, n, bw+1) band
+and (B, n, m) right-hand sides as they are and writes x in their layout.
+Bands up to ``_build.BANDED_CAPACITIES[-1]`` (32) take the warp kernel
+(one warp a lane), or, up to bw 16 and from ``LANES_MIN_BATCH[capacity]``
+lanes, the one-thread-per-lane kernel. Wider bands take the dynamic-width
+kernel (the warp kernel's design with the width a run-time argument and
+the window in dynamic shared memory) up to
 ``_build.banded_dyn_max_bw(itemsize)`` (237 in f32, 166 in f64), and any
 band past that the general-width kernel (window and running sums in
 device memory). The wrapper allocates the factor's scratch (and the
@@ -36,13 +36,31 @@ from . import _build
 LAUNCHES = {"warp": 0, "lanes": 0, "dynamic": 0, "general": 0}
 
 
-# Batches of at least this many lanes take the one-thread-per-lane kernel.
-# The crossover measured on one NVIDIA H100 80GB HBM3 at 700 W (n = 952,
-# bw = 11, benches/banded_points.py): in f32 the warp kernel is faster up
-# to 3,072 lanes and the two tie at 4,096; in f64 they tie at 3,072; from
-# 4,096 lanes to 16,384 the lane kernel is faster (at 8,192: 3.4 against
-# 5.2 ms in f32, 4.6 against 8.6 ms in f64).
-LANES_MIN_BATCH = 4096
+# Batches of at least LANES_MIN_BATCH[capacity] lanes take the
+# one-thread-per-lane kernel at that capacity of
+# ``_build.BANDED_LANES_CAPACITIES``, in f32 and f64 alike; smaller
+# batches, and bands wider than 16, take the warp kernel. Read from the
+# crossover sweep (``benches/banded_points.py --sweep crossover``: n = 952,
+# bw = the capacity, B = 32 to 8,192; and B = 1 at bw 1, 4, 8, 16 and at
+# bw = 11, n = 19,992) on one NVIDIA H100 80GB HBM3 at 700 W:
+# - capacities 1-12: the lane kernel is faster at every batch measured, in
+#   f32 and f64 (bw = 12: 1.05 against 1.17 ms at B = 32, 1.04 against
+#   3.01 at 4,096 in f32; B = 1, n = 19,992, bw = 11: 17.7-18.0 against
+#   20.9-21.2 ms f32, 23.4-23.6 against 31.8-32.0 f64). A batch below 32
+#   lanes is one warp of either kernel, a lane's own chain.
+# - capacity 16: the warp kernel is faster up to 1,024 lanes (1.35 against
+#   1.62 ms f32, 2.09 against 2.38 f64; at B = 1 too), the lane kernel from
+#   2,048 (1.62 against 1.75, 2.50 against 2.81).
+# The lane kernel has no capacity above 16: there it was faster from 2,048
+# to 4,096 lanes, but its instantiations spilled registers.
+LANES_MIN_BATCH = {1: 1, 2: 1, 4: 1, 8: 1, 12: 1, 16: 2048}
+
+
+def lanes_capacity(bw: int):
+    """The lane kernel's capacity for a band of half-bandwidth ``bw``: the
+    smallest of ``_build.BANDED_LANES_CAPACITIES`` that holds it, or
+    None."""
+    return next((cap for cap in _build.BANDED_LANES_CAPACITIES if cap >= bw), None)
 
 
 def route_for(B: int, bw: int, itemsize: int) -> str:
@@ -51,7 +69,8 @@ def route_for(B: int, bw: int, itemsize: int) -> str:
     "general"."""
     if bw > _build.BANDED_CAPACITIES[-1]:
         return "dynamic" if bw <= _build.banded_dyn_max_bw(itemsize) else "general"
-    return "lanes" if B >= LANES_MIN_BATCH else "warp"
+    cap = lanes_capacity(bw)
+    return "lanes" if cap is not None and B >= LANES_MIN_BATCH[cap] else "warp"
 
 
 def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
@@ -78,13 +97,14 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     if B == 0 or n == 0 or m == 0:
         return torch.zeros_like(b), fail
     route = route_for(B, bw, Ab.element_size())
-    lanes = route == "lanes"
-    if lanes:
-        ab_k = Ab.permute(1, 2, 0).contiguous()
-        rhs_k = b.reshape(B, n, m).permute(1, 2, 0).contiguous()
+    ab_k, rhs_k = Ab.contiguous(), b.reshape(B, n, m).contiguous()
+    if route == "lanes":
+        # The lane kernel's factor records: (n + bw, bw + 2, B rounded up
+        # to 32), lane fastest.
+        lb_k = torch.empty(((n + bw) * (bw + 2) * (-(-B // 32) * 32),), dtype=Ab.dtype,
+                           device=Ab.device)
     else:
-        ab_k, rhs_k = Ab.contiguous(), b.reshape(B, n, m).contiguous()
-    lb_k = torch.empty_like(ab_k)
+        lb_k = torch.empty_like(ab_k)
     x_k = torch.empty_like(rhs_k)
     f64 = int(Ab.dtype == torch.float64)
     lib = _build.load_library()
@@ -101,14 +121,12 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
                                           lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(), B,
                                           n, bw, m, stream)
         else:
-            err = lib.ezpz_banded_spd(f64, int(lanes), ab_k.data_ptr(), rhs_k.data_ptr(),
-                                      lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(),
-                                      B, n, bw, m, stream)
+            launch = lib.ezpz_banded_spd_lanes if route == "lanes" else lib.ezpz_banded_spd
+            err = launch(f64, ab_k.data_ptr(), rhs_k.data_ptr(), lb_k.data_ptr(),
+                         x_k.data_ptr(), fail.data_ptr(), B, n, bw, m, stream)
     if err != 0:
         raise RuntimeError(f"banded_spd kernel launch failed ({route}, bw={bw}): cudaError "
                            f"{err} ({_build.error_string(lib, err)})")
     _build.count_launches(__name__, 1, route)
     debug.check_outputs("the banded_spd kernel", x_k)
-    if lanes:
-        x_k = x_k.permute(2, 0, 1)
     return x_k.reshape(b.shape), fail

@@ -226,6 +226,43 @@ def test_banded_plan_fits_a_block(cap, itemsize):
     assert _build.banded_plan()[1][cap, itemsize] == nbytes
 
 
+@pytest.mark.parametrize("cap", _build.BANDED_CAPACITIES)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_banded_lanes_plan_fits_a_block(cap, itemsize):
+    """The lane kernel's shared memory a block (one warp, 32 lanes), from
+    first principles: the factor pass's window (cap slots of cap + 2
+    values) and two stage buffers (each lane's 16-byte-aligned span of G
+    rows of cap + 1 values, G = 8 in f32 and 4 in f64, an odd number of
+    16-byte units, and the right-hand side at lane pitch 33), or the
+    backward pass's ring of records (cap + 2 values) in groups of 4, as
+    many groups (4 to 8) as the factor pass's buffers hold beside the
+    doubled history (2 cap values). Every lane capacity fits the H100's
+    227 KB. The warp kernel's capacities past 16 have no lane
+    instantiation (they spilled), and their bands take the warp kernel at
+    every batch."""
+    if cap not in _build.BANDED_LANES_CAPACITIES:
+        assert cap > 16 and banded_spd.lanes_capacity(cap) is None
+        assert cap not in banded_spd.LANES_MIN_BATCH
+        assert [banded_spd.route_for(B, cap, itemsize) for B in (1, 2048, 8192, 16384)] == \
+            ["warp"] * 4
+        return
+    g = 4 if itemsize == 8 else 8
+    span = -(-(g * (cap + 1) * itemsize + 15) // 16) * 16
+    if (span // 16) % 2 == 0:
+        span += 16
+    stage = 32 * span + -(-(g * 33 * itemsize) // 16) * 16
+    window = cap * (cap + 2) * 32 * itemsize
+    factor = window + 2 * stage
+    record, hist = (cap + 2) * 32 * itemsize, 2 * cap * 32 * itemsize
+    groups = min(max((factor - hist) // record // 4, 4), 8)
+    want = max(factor, 4 * groups * record + hist)
+    assert _build.banded_lanes_ring(cap, itemsize) == 4 * groups
+    assert _build.banded_lanes_smem_bytes(cap, itemsize) == want <= 232_448
+    assert _build.banded_lanes_plan()[itemsize][cap] == want
+    if (cap, itemsize) == (12, 4):  # phase 8l's band: 4 blocks an SM
+        assert want == 51_264 and 4 * (want + 1024) <= 233_472
+
+
 def test_banded_points_help():
     """The timing script's command line parses (``--help`` exits 0)."""
     import subprocess
@@ -280,39 +317,53 @@ def test_banded_points_cpu_point():
 
 
 def test_banded_route_by_batch():
-    """Bands up to 32 wide take the warp kernel below ``LANES_MIN_BATCH``
-    lanes and the one-thread-per-lane kernel from there; wider ones the
-    dynamic-width kernel at any batch (in f32 up to 237) and past it the
-    general-width kernel."""
-    cut = banded_spd.LANES_MIN_BATCH
+    """Bands of a lane capacity up to 12 take the one-thread-per-lane
+    kernel at every batch; capacity 16 from ``LANES_MIN_BATCH[16]``
+    (2,048) lanes, the warp kernel below; bands of 17 to 32 the warp
+    kernel at any batch (the lane kernel has no capacity there); wider
+    bands the dynamic-width kernel at any batch (in f32 up to 237) and past
+    it the general-width kernel."""
+    cut = banded_spd.LANES_MIN_BATCH[16]
+    assert cut == 2048
     batches = (1, 1024, cut - 1, cut, 4 * cut)
     routes = {bw: [banded_spd.route_for(B, bw, 4) for B in batches]
-              for bw in (0, 11, 32, 33, 64, 65, 238)}
-    assert routes == {0: ["warp"] * 3 + ["lanes"] * 2, 11: ["warp"] * 3 + ["lanes"] * 2,
-                      32: ["warp"] * 3 + ["lanes"] * 2, 33: ["dynamic"] * 5,
+              for bw in (0, 11, 12, 13, 16, 17, 32, 33, 64, 65, 238)}
+    assert routes == {0: ["lanes"] * 5, 11: ["lanes"] * 5, 12: ["lanes"] * 5,
+                      13: ["warp"] * 3 + ["lanes"] * 2, 16: ["warp"] * 3 + ["lanes"] * 2,
+                      17: ["warp"] * 5, 32: ["warp"] * 5, 33: ["dynamic"] * 5,
                       64: ["dynamic"] * 5, 65: ["dynamic"] * 5, 238: ["general"] * 5}
     assert _build.BANDED_CAPACITIES[-1] == 32
 
 
-# (B, bw, route) at every edge of ``route_for``, per item size: the
-# crossover to the lane kernel (B 4095 / 4096 at bw 32), the warp and lane
-# kernels' width (32 / 33), the old edge of the warp kernel's capacities
-# 48 and 64 (64 / 65), and the dynamic-width kernel's limit for the type
-# and one past it.
+# (B, bw, route) at every edge of ``route_for``, per item size: the lane
+# kernel at every batch up to bw 12, its crossover at capacity 16 (B 2047 /
+# 2048 at bw 13 and 16), the warp kernel from bw 17 to 32 at any batch, the
+# warp and lane kernels' width (32 / 33), the old edge of the warp kernel's
+# capacities 48 and 64 (64 / 65), and the dynamic-width kernel's limit for
+# the type and one past it.
 ROUTE_EDGES = {
-    4: [(4095, 32, "warp"), (4096, 32, "lanes"), (1, 33, "dynamic"), (4096, 33, "dynamic"),
-        (1, 64, "dynamic"), (4096, 65, "dynamic"), (1, 237, "dynamic"),
-        (4096, 237, "dynamic"), (1, 238, "general"), (4096, 238, "general")],
-    8: [(4095, 32, "warp"), (4096, 32, "lanes"), (1, 33, "dynamic"), (4096, 33, "dynamic"),
-        (1, 64, "dynamic"), (4096, 65, "dynamic"), (1, 166, "dynamic"),
-        (4096, 166, "dynamic"), (1, 167, "general"), (4096, 167, "general")],
+    4: [(1, 12, "lanes"), (8192, 12, "lanes"), (2047, 13, "warp"), (2048, 13, "lanes"),
+        (2047, 16, "warp"), (2048, 16, "lanes"), (1, 17, "warp"), (8192, 17, "warp"),
+        (8192, 32, "warp"), (1, 33, "dynamic"), (4096, 33, "dynamic"), (1, 64, "dynamic"),
+        (4096, 65, "dynamic"), (1, 237, "dynamic"), (4096, 237, "dynamic"),
+        (1, 238, "general"), (4096, 238, "general")],
+    8: [(1, 12, "lanes"), (8192, 12, "lanes"), (2047, 13, "warp"), (2048, 13, "lanes"),
+        (2047, 16, "warp"), (2048, 16, "lanes"), (1, 17, "warp"), (8192, 17, "warp"),
+        (8192, 32, "warp"), (1, 33, "dynamic"), (4096, 33, "dynamic"), (1, 64, "dynamic"),
+        (4096, 65, "dynamic"), (1, 166, "dynamic"), (4096, 166, "dynamic"),
+        (1, 167, "general"), (4096, 167, "general")],
 }
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_banded_route_edges(itemsize):
-    """``route_for`` on both sides of each edge, in f32 and f64."""
-    assert banded_spd.LANES_MIN_BATCH == 4096
+    """``route_for`` on both sides of each edge, in f32 and f64; the table
+    names every lane capacity, the same in both types, and nothing past
+    16 (bands of 17 to 32 take the warp kernel)."""
+    assert banded_spd.LANES_MIN_BATCH == {1: 1, 2: 1, 4: 1, 8: 1, 12: 1, 16: 2048}
+    assert tuple(banded_spd.LANES_MIN_BATCH) == _build.BANDED_LANES_CAPACITIES
+    assert [banded_spd.lanes_capacity(bw) for bw in (0, 11, 13, 16, 17, 24, 32)] == \
+        [1, 12, 16, 16, None, None, None]
     assert [(B, bw, banded_spd.route_for(B, bw, itemsize)) for B, bw, _r in
             ROUTE_EDGES[itemsize]] == ROUTE_EDGES[itemsize]
 
@@ -366,10 +417,11 @@ def test_banded_dyn_plan_fits_a_block(bw, itemsize):
 def test_banded_sources_match_build_module():
     """The banded kernels' constants in the CUDA sources are the build
     module's mirror: the capacities, lanes a block and staged rows
-    (``banded_spd.cu``, ``banded_common.cuh``), and the dynamic-width
-    kernel's block limit and per-type widest bands (``banded_dynamic.cu``,
-    whose static_assert holds them at compile time); and the build
-    compiles both sources."""
+    (``banded_spd.cu``, ``banded_common.cuh``), the dynamic-width kernel's
+    block limit and per-type widest bands (``banded_dynamic.cu``, whose
+    static_assert holds them at compile time), and the lane kernel's
+    capacities and plan constants (``banded_lanes.cu``); and the
+    build compiles the three sources."""
     csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "ezpz_tpu_torch", "csrc")
     read = lambda name: open(os.path.join(csrc, name)).read()  # noqa: E731
@@ -386,4 +438,15 @@ def test_banded_sources_match_build_module():
                        r"dyn_max_bw<double>\(\) == (\d+)", dyn).groups()
     assert tuple(int(v) for v in limits) == (_build.banded_dyn_max_bw(4),
                                              _build.banded_dyn_max_bw(8))
-    assert {"banded_spd.cu", "banded_dynamic.cu"} <= set(_build.SOURCES)
+    assert {"banded_spd.cu", "banded_dynamic.cu", "banded_lanes.cu"} <= set(_build.SOURCES)
+    lanes = read("banded_lanes.cu")
+    caps = re.search(r"constexpr int LANE_CAPS\[\] = \{(.*?)\};", lanes).group(1)
+    assert tuple(int(c) for c in caps.split(",")) == _build.BANDED_LANES_CAPACITIES
+    assert int(re.search(r"constexpr int PITCH = (\d+);", lanes).group(1)) == \
+        _build.BANDED_LANES_PITCH
+    assert int(re.search(r"static constexpr int GB = (\d+);", lanes).group(1)) == \
+        _build.BANDED_LANES_GROUP
+    assert int(re.search(r"constexpr int MAX_GROUPS = (\d+);", lanes).group(1)) == \
+        _build.BANDED_LANES_GROUPS[1]
+    # The warp kernel's source no longer holds a lane kernel.
+    assert "lanes_kernel" not in read("banded_spd.cu")
