@@ -25,14 +25,32 @@ Phases (any failure exits non-zero before the result line):
    plain version (iterations, converged and degenerate equal lane for
    lane, coordinates within 1e-6, bit equality reported), and the whole
    coarse path (``BatchSolver(pallas_coarse=True, pallas_fused=False)``:
-   kernel, then the batched f64-residual refinement) against the same path
-   with the plain coarse version, as in phase 3;
+   kernel, then the batched f64-residual refinement, which factors the
+   four topologies past 24 variables in their band: ``batch._pick_spd``)
+   against the same path with the plain coarse version, as in phase 3;
 3c. each kernel alone (CUDA events, median of 5) on the topologies above
    the main path's shapes that the big-topology kernel takes (``square``
    and ``chamfer_square`` of the corpus, ``rect_chain(8)``, ``chain(40)``)
    and on two that ``<8,8>`` takes (``parallelogram``, ``arc_length``), at
    MIDSIZE_B seeded perturbations each (``MIDSIZE``; ``phase3c`` also runs
    alone, on any checkout whose package has the same wrappers);
+3d. the band tier of ``BatchSolver`` (``batch._pick_spd``): ``rect_chain(64)``
+   (386 variables and instances, bw 7: the one-thread-per-lane kernel's
+   route) and ``rect_grid(8,8)`` (162 variables, 290 instances, bw 19: the
+   warp kernel's), both past the fused kernel's gate, at BAND_B = 8192
+   seeded perturbations (sigma 1e-3) with per-sketch parameters through
+   ``BatchSolver(precision="mixed", pallas_fused=True,
+   batch_params=True).solve``: counts from zero, the bench gate, the
+   route's banded kernel launched and no other kernel; the dense witness
+   (``solve_lm_mixed(..., spd=spd_solve)``) on the same lanes: converged,
+   satisfied and degenerate equal lane for lane, iterations equal on at
+   least 99.9% of lanes, x within 1e-6 where both converged; both solves
+   timed (CUDA events, median of 5, fresh inputs) with their split between
+   assembly (``normal_equations``) and factor, LM trips and banded
+   launches per solve; the kernel alone on the run's first band
+   (``phase8_kernel``: bit-equal to the plain version in f32 and f64, the
+   dense library on the same matrices, the bound; at the chain the warp
+   kernel forced beside it);
 4. the fused main path of ``bench.py`` through the port: the
    ``massive_parallel_system`` fixture at 8192 copies (9.8 M one-variable
    and 4.9 M two-variable sketches) via ``Problem.from_str`` ->
@@ -219,9 +237,9 @@ call computes an LM fleet solve, so the fleet kernels' ``library_ms`` is
 null; the banded kernels' is the dense Cholesky factorization and solve
 of the same matrix. The banded kernels are records of their own:
 ``banded_spd`` (the warp kernel at phase 8w's bw = 27 band; that run's
-launches), ``banded_spd_lanes`` (the
-one-thread-per-lane kernel at phase 8l's band; the launches of phase 8's,
-8l's and 10a's runs), ``banded_spd_wide`` (the dynamic-width kernel at
+launches and phase 3d's ``rect_grid(8,8)`` run's), ``banded_spd_lanes``
+(the one-thread-per-lane kernel at phase 8l's band; the launches of phase
+3d's ``rect_chain(64)`` run and phase 8's, 8l's and 10a's runs), ``banded_spd_wide`` (the dynamic-width kernel at
 phase 8w's bw = 35 band; launches of its mixed, f64 and sharded runs),
 ``banded_spd_dynamic`` (the dynamic-width kernel at the bw = 67 run's
 band; its launches) and ``banded_spd_general`` (the general-width kernel
@@ -315,32 +333,6 @@ def guesses(cs):
     return x0
 
 
-def rect_chain(R):
-    """R rectangles chained corner to corner (benches/midsize_bench.py):
-    6R+2 constraints, 2(3R+1) variables."""
-    import numpy as np
-
-    from ezpz_tpu_torch import Constraint, DatumLineSegment, DatumPoint, IdGenerator
-
-    ids = IdGenerator()
-    pts = [DatumPoint.new(ids) for _ in range(3 * R + 1)]
-    cons = [Constraint.Fixed(pts[0].id_x(), 1.0), Constraint.Fixed(pts[0].id_y(), 1.0)]
-    guess = [(1.0, 1.0)]
-    for k in range(R):
-        s, u, v, w = pts[3 * k:3 * k + 4]
-        cons += [
-            Constraint.Horizontal(DatumLineSegment(s, u)),
-            Constraint.Vertical(DatumLineSegment(u, v)),
-            Constraint.Horizontal(DatumLineSegment(v, w)),
-            Constraint.Vertical(DatumLineSegment(w, s)),
-            Constraint.Distance(s, u, 4.0),
-            Constraint.Distance(s, w, 3.0),
-        ]
-        sx, sy = guess[3 * k]
-        guess += [(sx + 3.5, sy + 0.5), (sx + 4.2, sy + 3.4), (sx + 0.5, sy + 2.6)]
-    return cons, np.array([c for p in guess for c in p])
-
-
 def chain(n_points):
     """A pinned chain of unit distances along x (tests/test_torch_cuda.py):
     2 n_points variables, 2 n_points instances."""
@@ -365,6 +357,8 @@ def topologies():
         cs = system_of(fixture_text(name))
         x0 = guesses(cs)
         yield name, [r.constraint.set_from_initial_values(x0) for r in cs.constraints], x0
+    from ezpz_tpu_torch.fixtures import rect_chain
+
     cons, x0 = rect_chain(8)
     yield "rect_chain(8)", cons, x0
     for k in (40, 128):
@@ -539,6 +533,187 @@ def phase3c(dev, card, labels=MIDSIZE):
               f"({fms * 1e6 / MIDSIZE_B!r} ns/lane), coarse kernel alone {cms!r} ms "
               f"({cms * 1e6 / MIDSIZE_B!r} ns/lane) (CUDA events around {INNER} solves on "
               f"inputs made before, median of {REPS}); card: {card}", flush=True)
+
+
+# Phase 3d: the band tier of ``BatchSolver`` (``batch._pick_spd``) on
+# the card. Both topologies are past the fused kernel's gate, so the fused
+# mode takes the batched mixed path, whose damped normal equations the
+# topology's band factors: (label, n_vars, bw, the banded route at
+# BAND_B lanes).
+BAND_TIER = (("rect_chain(64)", 386, 7, "lanes"), ("rect_grid(8,8)", 162, 19, "warp"))
+BAND_B = 8192
+
+
+def band_topology(label):
+    from ezpz_tpu_torch import fixtures
+
+    return fixtures.rect_chain(64) if label == "rect_chain(64)" else fixtures.rect_grid(8, 8)
+
+
+def dense_witness(solver, x0s, pars, spd=None):
+    """The same lanes through ``solve_lm_mixed`` with the dense factor
+    (``spd_solve``, the port's route for these topologies before the band
+    tier; ``spd`` in its place), with its satisfaction: a
+    ``BatchResult``."""
+    from ezpz_tpu_torch.batch import BatchResult
+    from ezpz_tpu_torch.ops.linalg import spd_solve
+    from ezpz_tpu_torch.solver import solve_lm_mixed
+
+    c = solver.config
+    res = solve_lm_mixed(solver.system, solver.system32, x0s, c.max_iterations,
+                         c.residual_tolerance, c.step_tolerance, c.initial_lambda,
+                         pars64=pars, pars32=tuple(p.float() for p in pars),
+                         spd=spd or spd_solve)
+    return BatchResult(x=res.x, iterations=res.iterations, converged=res.converged,
+                       satisfied=solver.system.satisfaction(res.x, res.residual, pars),
+                       degenerate=res.deg)
+
+
+def band_split(run):
+    """One ``run(spd_wrapper)`` with CUDA events around every normal-
+    equation assembly (``CompiledSystem.normal_equations``) and every
+    factorization (the ``spd`` the wrapper is handed): (ms of the whole
+    run, ms in assembly, ms in the factor, LM trips)."""
+    import torch
+
+    from ezpz_tpu_torch.models import compiled
+
+    marks = {"assembly": [], "factor": []}
+
+    def timed_call(key, fn):
+        def wrapper(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            marks[key].append(ev)
+            return out
+        return wrapper
+
+    saved = compiled.CompiledSystem.normal_equations
+    compiled.CompiledSystem.normal_equations = timed_call("assembly", saved)
+    try:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        run(lambda spd: timed_call("factor", spd))
+        ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        compiled.CompiledSystem.normal_equations = saved
+    summed = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in marks.items()}
+    return ev[0].elapsed_time(ev[1]), summed["assembly"], summed["factor"], len(marks["assembly"])
+
+
+def phase3d(dev, card):
+    """The band tier on the card at full size: each topology of BAND_TIER
+    at BAND_B seeded perturbations (sigma 1e-3) with per-sketch parameters
+    through ``BatchSolver(precision="mixed", pallas_fused=True,
+    batch_params=True)``: counts from zero, the bench gate, the route's
+    banded kernel launched and no other kernel; the dense witness on the
+    same lanes (flags equal, iterations on ITER_EQUAL_MIN of the lanes, x
+    within X_TOL); both timed (CUDA events, median of REPS, fresh inputs)
+    with their split between assembly and factor; the kernel alone on the
+    run's first band (``phase8_kernel``). Returns the launches by route."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch.batch import BatchSolver
+    from ezpz_tpu_torch.config import Config
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.ops import banded, banded_spd, coarse_fleet, fused_fleet
+    from ezpz_tpu_torch.ops.linalg import spd_solve
+
+    t_start = time.perf_counter()
+    launches = dict.fromkeys(banded_spd.LAUNCHES, 0)
+    for seed, (label, n_want, bw_want, route_want) in enumerate(BAND_TIER):
+        t_topology = time.perf_counter()
+        cons, x0 = band_topology(label)
+        system = compile_system(cons, n_vars=len(x0))
+        solver = BatchSolver(system, Config(), batch_params=True, precision="mixed",
+                             pallas_fused=True, device=dev)
+        plan = banded.plan_band(system)
+        bw = None if plan is None else plan[1]
+        n_inst = sum(int(b.idx.shape[0]) for b in system.blocks)
+        route_at = banded_spd.route_for(BAND_B, bw or 0, 4)
+        order = "RCM" if plan and plan[0] is not None else "identity"
+        print(f"phase3d {label}: {system.n_vars} variables, {n_inst} instances, kernel "
+              f"gate {solver.kernel_ok}, band bw {bw} ({order} ordering), route at {BAND_B} "
+              f"lanes: {route_at}", flush=True)
+        if (system.n_vars, bw, route_at) != (n_want, bw_want, route_want) or solver.kernel_ok:
+            raise SystemExit(f"chip_smoke: phase3d {label} is not the band tier's case")
+        rng = np.random.default_rng(300 + seed)
+        noise = rng.normal(0.0, 1e-3, (REPS + 1, BAND_B, len(x0)))
+        xs = [torch.as_tensor(x0 + noise[k], device=dev) for k in range(REPS + 1)]
+        pars = tuple(torch.as_tensor(np.tile(b.par, (BAND_B, 1, 1)), device=dev)
+                     for b in system.blocks)
+        solver.solve(xs[0][:2], tuple(p[:2] for p in pars))  # warm-up
+        dense_witness(solver, xs[0][:2], tuple(p[:2] for p in pars))
+
+        # The main-path run: counts from zero.
+        banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
+        fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        with first_band(banded) as captured:
+            out = solver.solve(xs[0], pars)
+            torch.cuda.synchronize()
+        routes = dict(banded_spd.LAUNCHES)
+        fleet = fused_fleet.LAUNCHES + coarse_fleet.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        gate(f"phase3d {label} band tier x{BAND_B}", [(solver, xs[0], pars)], [out])
+        print(f"phase3d {label}: banded launches by route {routes}, fleet kernel launches "
+              f"{fleet}, iterations {int(out.iterations.min())}-{int(out.iterations.max())}, "
+              f"peak device memory {peak!r} bytes", flush=True)
+        others = sum(v for k, v in routes.items() if k != route_want)
+        if routes[route_want] == 0 or others or fleet:
+            raise SystemExit(f"chip_smoke: phase3d {label} did not run on the banded "
+                             f"kernel's {route_want} route alone")
+        launches[route_want] += routes[route_want]
+
+        # The dense witness on the same lanes.
+        torch.cuda.reset_peak_memory_stats()
+        dense = dense_witness(solver, xs[0], pars)
+        dense_peak = torch.cuda.max_memory_allocated()
+        check(f"phase3d {label} band tier against the dense witness x{BAND_B} (peak device "
+              f"memory of the witness {dense_peak!r} bytes)",
+              compare(as_tuple(out), as_tuple(dense)))
+
+        # Timing: whole solves on fresh inputs, then one split of each.
+        _wall, band_ms, band_walls = timed(around(lambda k: solver.solve(xs[k + 1], pars)))
+        _wall, dense_ms, dense_walls = timed(
+            around(lambda k: dense_witness(solver, xs[k + 1], pars)))
+        saved_spd = solver.spd
+
+        def band_run(wrap):
+            solver.spd = wrap(saved_spd)
+            try:
+                solver.solve(xs[1], pars)
+            finally:
+                solver.spd = saved_spd
+
+        for name, run, ms, walls in (
+                ("band tier", band_run, band_ms[0], band_walls),
+                ("dense witness", lambda wrap: dense_witness(solver, xs[1], pars,
+                                                             wrap(spd_solve)),
+                 dense_ms[0], dense_walls)):
+            total, assembly, factor, trips = band_split(run)
+            print(f"phase3d {label} {name} x{BAND_B}: {ms!r} ms per solve (CUDA events, "
+                  f"median of {REPS}, fresh inputs; host reps "
+                  f"{[round(w * 1e3, 3) for w in walls]} ms), {BAND_B * 1e3 / ms!r} solves/s; "
+                  f"split of one solve ({total!r} ms, {trips} LM trips): assembly "
+                  f"{assembly!r} ms, factor {factor!r} ms, rest {total - assembly - factor!r} "
+                  f"ms; card: {card}", flush=True)
+        print(f"phase3d {label}: {sum(routes.values())} banded launches per solve "
+              f"({route_want} route), band tier {band_ms[0]!r} ms against the dense "
+              f"witness's {dense_ms[0]!r} ms", flush=True)
+        del out, dense, xs
+        torch.cuda.empty_cache()
+        band, rhs = captured[0]
+        phase8_kernel(band, rhs, card, label=f"phase3d {label}",
+                      forced=("warp",) if route_want == "lanes" else ())
+        print(f"phase3d {label} ok: {time.perf_counter() - t_topology:.1f} s", flush=True)
+    print(f"phase3d ok: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
 
 
 def massive(dev, make_solver):
@@ -1769,20 +1944,19 @@ def first_band(module):
     """Within the block, ``module.banded_spd_solve`` (a caller's import of
     ``ops.banded.banded_spd_solve``) keeps a copy of its first call's band
     and right-hand side in the list it yields."""
-    from ezpz_tpu_torch.ops import banded
-
     captured = []
+    solve = module.banded_spd_solve
 
     def capture(band, rhs):
         if not captured:
             captured.append((band.clone(), rhs.clone()))
-        return banded.banded_spd_solve(band, rhs)
+        return solve(band, rhs)
 
     module.banded_spd_solve = capture
     try:
         yield captured
     finally:
-        module.banded_spd_solve = banded.banded_spd_solve
+        module.banded_spd_solve = solve
 
 
 def phase8(dev, card):
@@ -2791,6 +2965,7 @@ def main() -> int:
     phase3(dev)
     phase3b(dev)
     phase3c(dev, card)
+    band_tier = phase3d(dev, card)
     fused = phase4(dev, card)
     coarse = phase5(dev, card)
     full, api_us = phase6(dev, card)
@@ -2800,11 +2975,14 @@ def main() -> int:
     wide, dynamic, general, warp = phase8w(dev, card)
     phase9(dev, card)
     launches = phase10(dev, card)
-    # The warp kernel's record: phase 8w's main-path run at bw = 27. The
-    # lane kernel's: phase 8l's band, the launches of the three main-path
-    # runs it takes (phase 8, 8l and 10a). The wide routes (phase 8w) are
-    # records of their own.
-    lanes = dict(lanes, launches=lanes["launches"] + band["launches"] + launches)
+    # The warp kernel's record: phase 8w's main-path run at bw = 27, its
+    # launches with phase 3d's rect_grid(8,8) run's. The lane kernel's:
+    # phase 8l's band, the launches of the four main-path runs it takes
+    # (phase 3d's rect_chain(64), 8, 8l and 10a). The wide routes (phase
+    # 8w) are records of their own.
+    warp = dict(warp, launches=warp["launches"] + band_tier["warp"])
+    lanes = dict(lanes, launches=lanes["launches"] + band["launches"] + launches
+                 + band_tier["lanes"])
     kernels = []
     for name, rec, source, replaces in (
             ("fused_fleet", fused, "fused_fleet", "ezpz_tpu/ops/pallas_fleet.py:898"),

@@ -16,6 +16,13 @@ sketch running its own Levenberg-Marquardt loop. The modes:
 ``solve_analysis`` adds the batched freedom analysis (``dof``), and
 ``MultiTopologySolver`` runs several topologies' batches in turn.
 
+The batched LM loops (both plain modes, the coarse path's refinement, and
+a kernel mode's topology past the gate) solve their damped normal
+equations with the topology's tier, ``_pick_spd``: a topology of more
+than 24 variables whose identity or RCM ordering has a narrow band
+factors in that band (``ops/banded.make_banded_spd``, the hand-written
+banded kernels on the card), any other densely (``ops/linalg.spd_solve``).
+
 The kernel modes need ``precision="mixed"`` and ``batch_params=True`` (the
 JAX package asserts the same). They take a topology only when the kernel
 gate admits it (``fleet_plan.kernel_admits``: at most 256 instances, a
@@ -37,12 +44,33 @@ import torch
 from .config import Config
 from .dof import participation_device, underconstrained_from_participation
 from .models.compiled import CompiledSystem
+from .ops.banded import make_banded_spd, plan_band
 from .ops.coarse_fleet import coarse_fleet_solve
 from .ops.fleet_plan import kernel_admits, plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
+from .ops.linalg import UNROLL_MAX_N, spd_solve
 from .solver import (COARSE_TOLERANCE, LMResult, resolve_device, solve_lm,
                      solve_lm_mixed, solve_lm_refine)
 from .utils.errors import EmptySystemNotAllowed
+
+
+def _pick_spd(system: CompiledSystem):
+    """The topology's normal-equation solver, by the JAX package's rule
+    (``ezpz_tpu/batch.py:89-117``): n <= 24 the unrolled Crout and n > 24
+    with no narrow ordering the library's dense factorization (both
+    ``spd_solve``); n > 24 with an identity or RCM ordering whose band is
+    narrow (``plan_band``: bw <= 32 and bw + 1 < n // 2) the O(n bw^2)
+    band tier, ``make_banded_spd``. The JAX package's column-sweep tier
+    (24 < n <= 64, no narrow ordering) answers XLA's slow TPU Cholesky and
+    is ``spd_solve`` here. The plan (RCM on the host) runs once per
+    topology, in ``BatchSolver.__init__``."""
+    n = system.n_vars
+    if n > UNROLL_MAX_N:
+        plan = plan_band(system)
+        if plan is not None:
+            perm, bw = plan
+            return make_banded_spd(n, bw, perm)
+    return spd_solve
 
 
 @dataclass
@@ -115,6 +143,8 @@ class BatchSolver:
         # Topology routing: the kernels take what their gate admits.
         self.kernel_ok = pallas_coarse and kernel_admits(system)
         self.plan = plan_fleet(system) if self.kernel_ok else None
+        # The normal equations' tier: band or dense.
+        self.spd = _pick_spd(system)
 
     def settings(self, config: Optional[Config] = None) -> dict:
         """The fused solver's trip counts and tolerances (as the JAX
@@ -166,9 +196,9 @@ class BatchSolver:
         if self.precision == "mixed":
             pars32 = None if pars is None else tuple(p.float() for p in pars)
             res = solve_lm_mixed(self.system, self.system32, x0, *args,
-                                 pars64=pars, pars32=pars32)
+                                 pars64=pars, pars32=pars32, spd=self.spd)
         else:
-            res = solve_lm(self.system, x0, *args, pars=pars)
+            res = solve_lm(self.system, x0, *args, pars=pars, spd=self.spd)
         return self._result(res, pars)
 
     def coarse(self, x0: torch.Tensor, pars: Tuple, config=None):
@@ -188,7 +218,7 @@ class BatchSolver:
         res = solve_lm_refine(
             self.system, self.system32, x1, its, deg, c.max_iterations,
             c.residual_tolerance, c.step_tolerance, c.initial_lambda,
-            pars64=pars, pars32=tuple(p.float() for p in pars))
+            pars64=pars, pars32=tuple(p.float() for p in pars), spd=self.spd)
         return self._result(res, pars)
 
     def _finish_stragglers(self, result: BatchResult, x0, pars,

@@ -22,6 +22,7 @@ change, change, parent in one call).
     python -m ezpz_tpu_torch.benches.banded_points                      # the card
     python -m ezpz_tpu_torch.benches.banded_points --sweep lanes        # the lane kernel's A/B
     python -m ezpz_tpu_torch.benches.banded_points --sweep crossover    # LANES_MIN_BATCH's
+    python -m ezpz_tpu_torch.benches.banded_points --sweep crossover --rows 162,386
     python -m ezpz_tpu_torch.benches.banded_points --points 1024:952:11 --dtypes f64
     python -m ezpz_tpu_torch.benches.banded_points --cpu --points 3:20:2  # plain version
 
@@ -31,7 +32,10 @@ n = 952 (phase 8's boundary), B of 2,048 to 16,384 at bw = 11 and B =
 the warp kernel alone, and older checkouts' lane kernel); ``crossover``,
 the warp and lane kernels alone at B of 32 to 8,192 at the top width of
 every lane capacity (bw = capacity), which
-``ops/banded_spd.LANES_MIN_BATCH`` is read from.
+``ops/banded_spd.LANES_MIN_BATCH`` is read from. ``--rows`` puts a
+sweep's points at other n (the band tier's topologies: n = 162 for
+``rect_grid(8, 8)``, 386 for ``rect_chain(64)``), each point at every n
+given.
 
 ``--cpu`` runs the plain version on the host CPU with the host clock; its
 times are the CPU's, not the card's.
@@ -234,6 +238,8 @@ def main(argv=None) -> list:
                     help="operating points B:n:bw (default: " + " ".join(DEFAULT_POINTS) + ")")
     ap.add_argument("--sweep", choices=sorted(SWEEPS),
                     help="a named set of points in place of --points")
+    ap.add_argument("--rows", type=lambda t: [int(v) for v in t.split(",")],
+                    help="comma-separated n: the sweep's points at each of these n")
     ap.add_argument("--dtypes", default="f32,f64", help="comma-separated f32, f64")
     ap.add_argument("--reps", type=int, default=5, help="timed calls per median")
     ap.add_argument("--seed", type=int, default=0)
@@ -242,6 +248,8 @@ def main(argv=None) -> list:
     args = ap.parse_args(argv)
     if args.sweep:
         args.points = [parse_point(p) for p in SWEEPS[args.sweep]]
+    if args.rows:
+        args.points = [(B, n, bw) for n in args.rows for B, _n, bw in args.points]
     keep = SWEEP_ROUTES.get(args.sweep)
     dtypes = [DTYPES[d] for d in args.dtypes.split(",")]
     if args.cpu:

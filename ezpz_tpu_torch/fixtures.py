@@ -92,3 +92,50 @@ def coupled_hub(total_lines: int, cluster: int = 10
     line_of = np.arange(len(x0)) // 4
     part_of_var = np.where(line_of == 0, 0, 1 + (line_of - 1) // cluster)
     return [r.constraint for r in cs.constraints], x0, part_of_var
+
+
+def rect_chain(R: int) -> Tuple[List[Constraint], np.ndarray]:
+    """R rectangles chained corner to corner (``benches/midsize_bench.py``,
+    the reference's ``two_rectangles_dependent`` generalised): 6R + 2
+    constraints, 2 (3R + 1) variables, an RCM band 7 wide. Returns
+    (constraints, initial guesses)."""
+    pts = [DatumPoint(2 * i, 2 * i + 1) for i in range(3 * R + 1)]
+    cons = [Constraint.Fixed(pts[0].x_id, 1.0), Constraint.Fixed(pts[0].y_id, 1.0)]
+    guess = [(1.0, 1.0)]
+    for k in range(R):
+        s, u, v, w = pts[3 * k:3 * k + 4]
+        cons += [
+            Constraint.Horizontal(DatumLineSegment(s, u)),
+            Constraint.Vertical(DatumLineSegment(u, v)),
+            Constraint.Horizontal(DatumLineSegment(v, w)),
+            Constraint.Vertical(DatumLineSegment(w, s)),
+            Constraint.Distance(s, u, 4.0),
+            Constraint.Distance(s, w, 3.0),
+        ]
+        sx, sy = guess[3 * k]
+        guess += [(sx + 3.5, sy + 0.5), (sx + 4.2, sy + 3.4), (sx + 0.5, sy + 2.6)]
+    return cons, np.array([c for p in guess for c in p])
+
+
+def rect_grid(RX: int, RY: int) -> Tuple[List[Constraint], np.ndarray]:
+    """An RX x RY grid of unit cells pinned at one corner
+    (``benches/midsize_bench.py``): every horizontal edge Horizontal +
+    Distance 1, every vertical edge Vertical + Distance 1; 2 (RX + 1)
+    (RY + 1) variables, an RCM band about 2 min(RX, RY) + 3 wide. Guesses
+    are the grid moved by seeded N(0, 0.05)."""
+    P = [[DatumPoint(2 * (i * (RY + 1) + j), 2 * (i * (RY + 1) + j) + 1)
+          for j in range(RY + 1)] for i in range(RX + 1)]
+    cons = [Constraint.Fixed(P[0][0].x_id, 0.0), Constraint.Fixed(P[0][0].y_id, 0.0)]
+    rng = np.random.default_rng(3)
+    x0 = np.zeros(2 * (RX + 1) * (RY + 1))
+    for i in range(RX + 1):
+        for j in range(RY + 1):
+            x0[P[i][j].x_id] = i + rng.normal(0, 0.05)
+            x0[P[i][j].y_id] = j + rng.normal(0, 0.05)
+            if i < RX:
+                cons.append(Constraint.Horizontal(DatumLineSegment(P[i][j], P[i + 1][j])))
+                cons.append(Constraint.Distance(P[i][j], P[i + 1][j], 1.0))
+            if j < RY:
+                cons.append(Constraint.Vertical(DatumLineSegment(P[i][j], P[i][j + 1])))
+                cons.append(Constraint.Distance(P[i][j], P[i][j + 1], 1.0))
+    return cons, x0

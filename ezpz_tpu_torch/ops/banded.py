@@ -20,8 +20,10 @@ operations, every sum taken in a fixed order, term by term, that the
 kernels repeat (in eager PyTorch that loop is a chain of about
 ``n * (bw^2 + 3 bw)`` launches, which is why the card does not run it).
 
-``plan_band`` and ``make_banded_spd`` (the per-topology band route of the
-JAX package's ``BatchSolver``) are ported as functions and routed nowhere.
+``plan_band`` and ``make_banded_spd`` are the per-topology band route of
+``BatchSolver``'s normal equations (``batch._pick_spd``, as the JAX
+package's): a topology of more than 24 variables whose identity or RCM
+ordering has a narrow band solves its damped JtJ here on every LM trip.
 """
 
 from __future__ import annotations
@@ -168,20 +170,30 @@ def plan_band(system):
 def make_banded_spd(n: int, bw: int, perm=None):
     """An ``spd(A, b) -> (x, fail)`` with ``spd_solve``'s contract for dense
     ``A`` (B, n, n) whose entries outside the ``bw``-wide band of the
-    ordering ``perm`` are exact zeros (``plan_band``): permute, extract the
-    lower band, ``banded_spd_solve``, permute back."""
-    idx = None if perm is None else torch.as_tensor(np.asarray(perm), dtype=torch.long)
+    ordering ``perm`` are exact zeros (``plan_band``): the lower band of the
+    permuted matrix gathered straight from ``A`` (entry ``[i, i - bw + d]``
+    of the permuted matrix is ``A[perm[i], perm[i - bw + d]]``; no permuted
+    copy of ``A`` is made), ``banded_spd_solve`` on it and ``b[:, perm]``,
+    then x gathered back through the inverse permutation. ``BatchSolver``
+    calls it on every LM trip (``batch._pick_spd``): its index tensors are
+    copied to a device once, at that device's first call."""
+    p = np.arange(n) if perm is None else np.asarray(perm, dtype=np.int64)
+    rows = np.arange(n)[:, None]
+    cols = rows - bw + np.arange(bw + 1)[None, :]
+    tables = (p[rows], p[np.clip(cols, 0, max(n - 1, 0))], cols >= 0,
+              None if perm is None else p, None if perm is None else np.argsort(p))
+    by_device = {}
 
     def spd(A, b):
-        if idx is not None:
-            p = idx.to(A.device)
-            A, b = A[:, p][:, :, p], b[:, p]
-        x_p, fail = banded_spd_solve(dense_to_band(A, bw), b)
-        if idx is None:
-            return x_p, fail
-        x = torch.zeros_like(x_p)
-        x[:, idx.to(A.device)] = x_p
-        return x, fail
+        dev = A.device
+        if dev not in by_device:
+            by_device[dev] = tuple(None if t is None else torch.as_tensor(t, device=dev)
+                                   for t in tables)
+        r_idx, c_idx, inside, fwd, inv = by_device[dev]
+        band = torch.where(inside, A[:, r_idx, c_idx],
+                           torch.zeros((), dtype=A.dtype, device=dev))
+        x_p, fail = banded_spd_solve(band, b if fwd is None else b[:, fwd])
+        return (x_p, fail) if inv is None else (x_p[:, inv], fail)
 
     return spd
 

@@ -175,35 +175,38 @@ def _reference_result(final: LMState, res_conv, max_iterations: int) -> LMResult
                     residual=final.r)
 
 
-def damped_spd_solve(jtj, lam, b):
-    """``spd_solve(jtj + lam*I, b)`` per lane with an f32 singular-rescue retry.
+def damped_spd_solve(jtj, lam, b, spd=spd_solve):
+    """``spd(jtj + lam*I, b)`` per lane with an f32 singular-rescue retry.
 
     In f64 this is one plain factorization (reference-exact). In f32 a
     lane whose factorization FAILS with the raw lambda is re-factored with
     lambda floored at ``1e-6 * max|diag|`` (just above f32 round-off for the
     matrix's scale); well-conditioned lanes keep the exact damping. The
     carried lambda is untouched either way (``ezpz_tpu/solver.py:176-202``).
-    ``lam`` is (B,)."""
+    ``lam`` is (B,); ``spd`` is the normal-equation solver (``spd_solve``'s
+    contract: ``(x, fail)``, x zero-filled on failed lanes), the topology's
+    band route where ``batch._pick_spd`` gives one."""
     n = jtj.shape[-1]
     eye = torch.eye(n, dtype=jtj.dtype, device=jtj.device)
-    d, fail = spd_solve(jtj + lam[:, None, None] * eye, b)
+    d, fail = spd(jtj + lam[:, None, None] * eye, b)
     if jtj.dtype != torch.float32:
         return d, fail
     diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
     floor = 1e-6 * _rows_max_abs(diag)
-    d2, fail2 = spd_solve(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
+    d2, fail2 = spd(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
     return torch.where(fail[:, None], d2, d), fail & fail2
 
 
 def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
              residual_tolerance, step_tolerance, initial_lambda, pars=None,
-             debug_jac: bool = False) -> LMResult:
+             debug_jac: bool = False, spd=spd_solve) -> LMResult:
     """Run the LM loop on a batch ``x0`` (B, n) of one topology.
     ``residual_tolerance`` and ``step_tolerance`` are scalars or per-lane
     (B,) tensors; ``pars`` optionally overrides the per-block parameters
     with (B, n_k, p_k) tensors. ``debug_jac`` prints the dense weighted
     Jacobian of every live lane on every trip (the reference's ``dbg-jac``
-    feature, ``solver.rs:370-439``)."""
+    feature, ``solver.rs:370-439``). ``spd`` solves the damped normal
+    equations (``damped_spd_solve``)."""
     dtype = system.dtype
     dev = x0.device
     rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
@@ -212,7 +215,7 @@ def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
 
     def step(s: LMState, _live):
         _r, jtj, jtr, deg_j = system.normal_equations(s.x, pars)
-        d, fail = damped_spd_solve(jtj, s.lam, -jtr)
+        d, fail = damped_spd_solve(jtj, s.lam, -jtr, spd=spd)
         return d, fail, deg_j
 
     debug_fn = None
@@ -349,14 +352,15 @@ def solve_lm_cg(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
 def solve_lm_mixed(system64: CompiledSystem, system32: CompiledSystem,
                    x0: torch.Tensor, max_iterations: int, residual_tolerance,
                    step_tolerance, initial_lambda, pars64=None,
-                   pars32=None) -> LMResult:
+                   pars32=None, spd=spd_solve) -> LMResult:
     """Mixed-precision LM: f32 iterations, then f64-residual refinement.
 
     Phase 1 runs ``solve_lm`` on the f32 twin, at most
     ``COARSE_MAX_ITERATIONS`` trips, toward ``COARSE_TOLERANCE`` and the
     step floor ``1e-7``, both scaled per lane by ``max(1, |x0|_inf)``
     (f32 round-off on residuals scales with coordinate magnitude). Phase 2
-    is ``solve_lm_refine``. ``iterations`` counts both phases."""
+    is ``solve_lm_refine``. ``iterations`` counts both phases; both factor
+    with ``spd``."""
     f32 = system32.dtype
     scale = torch.maximum(torch.ones((), dtype=f32, device=x0.device),
                           _rows_max_abs(x0).to(f32))
@@ -365,21 +369,22 @@ def solve_lm_mixed(system64: CompiledSystem, system32: CompiledSystem,
         torch.tensor(COARSE_TOLERANCE, dtype=f32, device=x0.device) * scale,
         torch.maximum(torch.tensor(step_tolerance, dtype=f32, device=x0.device),
                       1e-7 * scale),
-        initial_lambda, pars=pars32)
+        initial_lambda, pars=pars32, spd=spd)
     return solve_lm_refine(
         system64, system32, coarse.x, coarse.iterations, coarse.deg,
         max_iterations, residual_tolerance, step_tolerance, initial_lambda,
-        pars64=pars64, pars32=pars32)
+        pars64=pars64, pars32=pars32, spd=spd)
 
 
 def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
                     x_coarse: torch.Tensor, coarse_iterations, coarse_deg,
                     max_iterations: int, residual_tolerance, step_tolerance,
-                    initial_lambda, pars64=None, pars32=None) -> LMResult:
+                    initial_lambda, pars64=None, pars32=None,
+                    spd=spd_solve) -> LMResult:
     """The f64-residual refinement: from a coarse point (B, n), its
     iteration counts (B,) and degenerate flags (B, n_cons), run LM trips
     whose residual and accept/reject are f64 while the Jacobian, normal
-    equations and factorization stay f32. Lambda restarts at
+    equations and factorization (by ``spd``) stay f32. Lambda restarts at
     ``initial_lambda`` in f32. Each lane's budget is
     ``clip(max_iterations - coarse_iterations, 0, REFINE_ITERATIONS)``;
     reported iterations include the coarse count."""
@@ -395,7 +400,7 @@ def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
 
     def step(s: LMState, _live):
         jtj, jtr, deg_j = system32.refine_normal_equations(s.x, s.r, pars32)
-        d32, fail = damped_spd_solve(jtj, s.lam, -jtr)
+        d32, fail = damped_spd_solve(jtj, s.lam, -jtr, spd=spd)
         return d32.to(f64), fail, deg_j
 
     final, res_conv = _lm_while_loop(
