@@ -1,0 +1,90 @@
+"""The plain reference agrees with the program's plain path, and the
+check separates the program from its control and from planted faults."""
+
+import numpy as np
+import pytest
+import torch
+
+from rehearsal import cell as rehearsal_cell, rehearse
+
+
+@pytest.mark.parametrize("cell", ["massive.fleet", "chain64.fleet"])
+def test_reference_residuals_match_the_program(cell):
+    """At seeded points the reference's residual rows equal the program's
+    compiled residuals (same rows: every kind here lowers to one)."""
+    from ezpz_tpu_torch.models.compiled import compile_system
+
+    from portbench.reference import lm
+
+    c = rehearsal_cell(cell)
+    sk = c.sketch
+    system = compile_system([r.constraint for r in c.sketch_mod.port_requests(c.cfg)],
+                            sk.n_vars)
+    x = sk.guess + np.random.default_rng(5).normal(0, 0.3, sk.n_vars)
+    ours = lm.residual(sk.kinds, sk.ids, sk.params, x)
+    theirs = system.residual(torch.as_tensor(x)[None])[0].numpy()
+    order = np.concatenate([b.cid for b in system.blocks])
+    np.testing.assert_allclose(theirs, ours[order], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("cell", ["massive.fleet", "chain64.fleet"])
+def test_reference_solves_what_the_program_solves(cell):
+    """A few lanes through the program's plain path on the CPU and through
+    the reference: the same verdicts and the same answers."""
+    from portbench import check
+
+    c = rehearsal_cell(cell)
+    rng = np.random.default_rng(3)
+    c.loop.prepare(99)
+    c.loop.run(count=1, keep={0})
+    found = check.numbers(c.sketch, c.loop.answers(rng))
+    assert found["flags_off"] == 0 and found["cases"] > 0
+    assert found["x_gap"] < c.limits["x_gap"] and found["resid"] <= c.limits["resid"]
+
+
+@pytest.mark.parametrize("cell", ["massive.fleet", "chain64.fleet"])
+def test_control_is_not_correct(cell):
+    """The reference in float32 in the program's place fails the check."""
+    from portbench import check
+
+    c = rehearsal_cell(cell)
+    rng = np.random.default_rng(4)
+    c.loop.prepare(2**35)
+    c.loop.run(count=2, keep=c.loop.keep_for(rng, 2))
+    cases = c.loop.answers(rng)
+    assert check.verdict(check.numbers(c.sketch, cases), c.limits)[0]
+    control = check.numbers(c.sketch, check.control_cases(c.sketch, cases))
+    correct, shown = check.verdict(control, c.limits)
+    assert not correct
+    assert shown["resid"]["value"] > 3 * shown["resid"]["limit"]
+
+
+def _plant(monkeypatch, change):
+    from ezpz_tpu_torch import batch
+
+    real = batch.BatchSolver.solve
+
+    def broken(self, x0, pars=None, *a, **k):
+        out = real(self, x0, pars, *a, **k)
+        return batch.BatchResult(change(out.x, x0), out.iterations, out.converged,
+                                 out.satisfied, out.degenerate)
+
+    monkeypatch.setattr(batch.BatchSolver, "solve", broken)
+
+
+FAULTS = {
+    # A step that returns its state unchanged: the guesses come back.
+    "unchanged": lambda x, x0: torch.as_tensor(x0, dtype=x.dtype).clone(),
+    # An answer altered where it is produced.
+    "altered": lambda x, x0: x + 1e-6,
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("cell", ["massive.fleet", "chain64.fleet"])
+def test_run_with_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
+    """The whole run, past the look for a card, with the timed path broken
+    underneath: ``correct`` comes out false."""
+    _plant(monkeypatch, FAULTS[fault])
+    result, lines = rehearse(cell)
+    assert result["correct"] is False, lines

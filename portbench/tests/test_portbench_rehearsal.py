@@ -1,0 +1,63 @@
+"""Every cell of BENCHMARK.json runs end to end on the CPU at a tiny size,
+untraced and traced, and its answers pass the check."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from rehearsal import CELLS, cell as rehearsal_cell, harness, rehearse
+
+REPO = Path(__file__).resolve().parents[2]
+
+
+def test_every_cell_has_a_rehearsal():
+    assert {w["name"] for w in harness.benchmark()["workloads"]} == set(CELLS)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_window_is_correct(cell):
+    result, lines = rehearse(cell)
+    assert result["correct"], lines
+    assert result["attempted"] > 0 and result["failed"] == 0
+    names = {m["name"] for m in rehearsal_cell(cell).end_to_end}
+    assert set(result["metrics"]) == names and "setup_s" in names
+    assert all(v["value"] > 0 for v in result["metrics"].values())
+    assert list(result)[-1] == "checks"
+    assert lines[-3:] == [f"check {k}: {v['value']!r} (limit {v['limit']!r})"
+                          for k, v in result["checks"].items()]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_traced_run_is_correct(cell):
+    result, lines = rehearse(cell, traced=True)
+    assert result["correct"], lines
+    # No device ran: every device metric is left out, never written as 0.
+    assert result["metrics"] == {}
+    assert result["device"]["busy_s"] == 0.0 and result["device"]["window_s"] > 0
+    assert len(result["breakdown"]["idle_gaps"]) <= 10
+
+
+def test_command_without_a_card_prints_no_result():
+    proc = subprocess.run([sys.executable, "portbench/run.py", "--workload", "massive.fleet",
+                           "--seed", str(2**40), "--seconds", "1", "--trace", "0"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 2
+    assert proc.stdout == ""
+    assert "CUDA" in proc.stderr
+
+
+def test_benchmark_json_names_every_file_it_needs():
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    root = REPO / "portbench"
+    for c in bench["configs"]:
+        assert (REPO / c["file"]).is_file()
+        assert json.loads((REPO / c["file"]).read_text())["name"] == c["name"]
+    for w in bench["workloads"]:
+        traffic = root / "traffic" / f"{w['traffic']}.json"
+        assert (root / "loops" / f"{json.loads(traffic.read_text())['loop']}.py").is_file()
+        assert (root / "limits" / f"{w['name']}.json").is_file()
+    for m in bench["per_layer"]:
+        assert callable(harness.reader(m["name"]).read)
