@@ -41,9 +41,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import tracing
 from .config import Config
 from .dof import participation_device, underconstrained_from_participation
-from .models.compiled import CompiledSystem
+from .models.compiled import CompiledSystem, to_device
 from .ops.banded import make_banded_spd, plan_band
 from .ops.coarse_fleet import coarse_fleet_solve
 from .ops.fleet_plan import kernel_admits, plan_fleet
@@ -175,12 +176,12 @@ class BatchSolver:
 
     def _inputs(self, x0, pars):
         resolve_device(self.device)
-        x0 = torch.as_tensor(x0, dtype=torch.float64, device=self.device)
+        x0 = to_device(x0, dtype=torch.float64, device=self.device)
         if not self.batch_params:
             return x0, None
         if pars is None:
             raise ValueError("batch_params=True requires pars")
-        return x0, tuple(torch.as_tensor(p, dtype=torch.float64, device=self.device)
+        return x0, tuple(to_device(p, dtype=torch.float64, device=self.device)
                          for p in pars)
 
     def _result(self, res: LMResult, pars) -> BatchResult:
@@ -249,18 +250,20 @@ class BatchSolver:
         ``finish_stragglers`` (kernel modes only): lanes the fixed-trip
         kernel leaves unconverged are re-solved through the plain mixed path
         and merged. A topology outside the kernel gate takes the batched
-        mixed path in the kernel modes too."""
-        x0, pars = self._inputs(x0, pars)
-        if not self.kernel_ok:
-            return self._solve_plain(x0, pars, config)
-        if self.pallas_fused:
-            out = BatchResult(*fused_fleet_solve(self.plan, x0, pars,
-                                                 **self.settings(config)))
-        else:
-            out = self.refine(*self.coarse(x0, pars, config), pars, config)
-        if finish_stragglers:
-            out = self._finish_stragglers(out, x0, pars, config)
-        return out
+        mixed path in the kernel modes too. The call is the span
+        ``ezpz.batch.solve`` (``tracing``)."""
+        with tracing.span("ezpz.batch.solve"):
+            x0, pars = self._inputs(x0, pars)
+            if not self.kernel_ok:
+                return self._solve_plain(x0, pars, config)
+            if self.pallas_fused:
+                out = BatchResult(*fused_fleet_solve(self.plan, x0, pars,
+                                                     **self.settings(config)))
+            else:
+                out = self.refine(*self.coarse(x0, pars, config), pars, config)
+            if finish_stragglers:
+                out = self._finish_stragglers(out, x0, pars, config)
+            return out
 
     def solve_analysis(self, x0, pars: Optional[Tuple] = None):
         """Solve the batch AND run the freedom (DoF) analysis per sketch

@@ -11,7 +11,8 @@ Parses a problem file (or stdin with ``-f -``), solves it on the card
 mean microseconds + solves/sec (red when below 60), and optionally renders
 a PNG. Off the CPU it also prints the pipelined protocol's time (one
 synchronization at the end). ``--profile DIR`` writes a ``torch.profiler``
-Chrome trace of the timing loop into DIR.
+Chrome trace of the timing loop, with the solver's ``ezpz.*`` spans
+(``tracing``), into DIR.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def main(argv=None) -> int:
                              "comparable to the reference)")
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="Write a torch.profiler Chrome trace of the "
-                             "benchmark loop into DIR")
+                             "benchmark loop, with the solver's ezpz.* spans, into DIR")
     args = parser.parse_args(argv)
 
     from .config import Config

@@ -20,12 +20,23 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constraints import Constraint
 from ..ops.kernels import KERNELS, KernelSpec, jvp
 
 EPSILON = 1e-4  # satisfaction tolerance, ezpz/src/lib.rs:43
 
 _NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def to_device(a, dtype=None, device=None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype, device)``, counted as one host-to-device
+    copy (``tracing``'s ``h2d.copies``) unless ``a`` is already a tensor.
+    On the card such a copy from host memory waits for the stream to
+    drain. Counted on every device, the CPU included."""
+    if not isinstance(a, torch.Tensor):
+        tracing.count("h2d.copies")
+    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 @dataclass(frozen=True)
@@ -66,7 +77,7 @@ class CompiledSystem:
 
     def _pars(self, pars, i, like):
         if pars is None:
-            return torch.as_tensor(self.blocks[i].par, dtype=like.dtype,
+            return to_device(self.blocks[i].par, dtype=like.dtype,
                                    device=like.device)
         return pars[i]
 
@@ -84,16 +95,16 @@ class CompiledSystem:
         deg_acc = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
                               device=x.device)
         for i, b in enumerate(self.blocks):
-            idx = torch.as_tensor(b.idx, dtype=torch.long, device=x.device)
+            idx = to_device(b.idx, dtype=torch.long, device=x.device)
             v = x[..., idx]  # (..., nb, nv)
             p = self._pars(pars, i, x)  # (..., nb, np)
             res, deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
                                  [p[..., k] for k in range(b.spec.nparams)])
-            w = torch.as_tensor(b.weight, dtype=x.dtype, device=x.device)
+            w = to_device(b.weight, dtype=x.dtype, device=x.device)
             res = torch.movedim(res, 0, -1) * w[:, None]  # (..., nb, dim)
             parts.append(res.reshape(batch + (-1,)))
             if b.spec.can_degenerate:
-                cid = torch.as_tensor(b.cid, dtype=torch.long, device=x.device)
+                cid = to_device(b.cid, dtype=torch.long, device=x.device)
                 deg_acc.index_add_(-1, cid, deg.to(torch.int32))
         if parts:
             r = torch.cat(parts, dim=-1)
@@ -123,22 +134,23 @@ class CompiledSystem:
         parts, jj, jr = [], [], []
         deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
         slices = self.block_row_slices()
-        for i, b in enumerate(self.blocks):
-            spec = b.spec
-            res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
-            if rhs is None:
-                wres = [res[d] * w for d in range(spec.dim)]
-            else:
-                lo, hi = slices[i]
-                r_b = rhs[:, lo:hi].to(self.dtype).reshape(B, -1, spec.dim)
-                wres = [r_b[..., d] for d in range(spec.dim)]
-            for ka in wjac:
-                jr.append(_dot(ka, wres))
-                jj.extend(_dot(ka, la) for la in wjac)
-            parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
-            if spec.can_degenerate:
-                cid = torch.as_tensor(b.cid, dtype=torch.long, device=dev)
-                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+        with tracing.span("ezpz.lm.jacobian"):
+            for i, b in enumerate(self.blocks):
+                spec = b.spec
+                res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
+                if rhs is None:
+                    wres = [res[d] * w for d in range(spec.dim)]
+                else:
+                    lo, hi = slices[i]
+                    r_b = rhs[:, lo:hi].to(self.dtype).reshape(B, -1, spec.dim)
+                    wres = [r_b[..., d] for d in range(spec.dim)]
+                for ka in wjac:
+                    jr.append(_dot(ka, wres))
+                    jj.extend(_dot(ka, la) for la in wjac)
+                parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
+                if spec.can_degenerate:
+                    cid = to_device(b.cid, dtype=torch.long, device=dev)
+                    deg_acc.index_add_(-1, cid, deg.to(torch.int32))
         jtj, jtr = self._assemble(jj, jr, B, x)
         if parts:
             r = torch.cat(parts, dim=-1)
@@ -154,13 +166,13 @@ class CompiledSystem:
         b = self.blocks[i]
         spec = b.spec
         dev = x.device
-        idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+        idx = to_device(b.idx, dtype=torch.long, device=dev)
         v = x[:, idx]  # (B, nb, nv)
         vs = tuple(v[..., k] for k in range(spec.nvars))
         p = self._pars(pars, i, x)
         ps = [p[..., k] for k in range(spec.nparams)]
         one, zero = torch.ones_like(vs[0]), torch.zeros_like(vs[0])
-        w = torch.as_tensor(b.weight, dtype=self.dtype, device=dev)
+        w = to_device(b.weight, dtype=self.dtype, device=dev)
         wjac = []
         for a in range(spec.nvars):
             tangent = tuple(one if r == a else zero for r in range(spec.nvars))
@@ -189,7 +201,7 @@ class CompiledSystem:
             wjacs.append(torch.stack([torch.stack(ka, dim=-1) for ka in wjac], dim=-1))
             parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
             if spec.can_degenerate:
-                cid = torch.as_tensor(b.cid, dtype=torch.long, device=dev)
+                cid = to_device(b.cid, dtype=torch.long, device=dev)
                 deg_acc.index_add_(-1, cid, deg.to(torch.int32))
         if parts:
             r = torch.cat(parts, dim=-1)
@@ -221,10 +233,10 @@ class CompiledSystem:
         if dev not in cache:
             entries, gather, size = self._assembly[1]
             cache[dev] = (
-                tuple(torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+                tuple(to_device(b.idx, dtype=torch.long, device=dev)
                       for b in self.blocks),
-                torch.as_tensor(entries, device=dev),
-                torch.as_tensor(gather, device=dev), size)
+                to_device(entries, device=dev),
+                to_device(gather, device=dev), size)
         return cache[dev]
 
     def jacobian_dense(self, x: torch.Tensor, pars=None) -> torch.Tensor:
@@ -241,7 +253,7 @@ class CompiledSystem:
             _res, wjac, _deg, _w = self._weighted_jacobian(i, x, pars)
             rows = lo + (torch.arange(nb, device=dev)[:, None] * dim
                          + torch.arange(dim, device=dev)[None, :])  # (nb, dim)
-            idx = torch.as_tensor(b.idx, dtype=torch.long, device=dev)
+            idx = to_device(b.idx, dtype=torch.long, device=dev)
             for a, col in enumerate(wjac):
                 # One variable slot at a time: its (row, column) pairs are
                 # distinct, so each update is a plain gather-add-scatter.
@@ -254,8 +266,9 @@ class CompiledSystem:
         ``jj`` holds, per block, one (B, nb) tensor for each (k, l) pair of
         instance variables; ``jr`` one for each k."""
         n = self.n_vars
-        jtj = self._plan_sum(self._assembly[0], jj, B, like)
-        jtr = self._plan_sum(self._assembly[1], jr, B, like)
+        with tracing.span("ezpz.lm.assemble"):
+            jtj = self._plan_sum(self._assembly[0], jj, B, like)
+            jtr = self._plan_sum(self._assembly[1], jr, B, like)
         if self.part_size:
             s = self.part_size
             return jtj.reshape(B, n // s, s, s), jtr
@@ -269,8 +282,8 @@ class CompiledSystem:
         dev = like.device
         cols = (torch.cat(vals, dim=1) if vals
                 else torch.zeros((B, 0), dtype=self.dtype, device=dev))
-        return gather_sum(cols, torch.as_tensor(entries, device=dev),
-                          torch.as_tensor(gather, device=dev), size)
+        return gather_sum(cols, to_device(entries, device=dev),
+                          to_device(gather, device=dev), size)
 
     @cached_property
     def _assembly(self):
@@ -326,13 +339,13 @@ class CompiledSystem:
         unsat = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
                             device=x.device)
         for i, b in enumerate(self.blocks):
-            idx = torch.as_tensor(b.idx, dtype=torch.long, device=x.device)
+            idx = to_device(b.idx, dtype=torch.long, device=x.device)
             v = x[..., idx]
             p = self._pars(pars, i, x)
             res, _deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
                                   [p[..., k] for k in range(b.spec.nparams)])
             bad = ~(torch.abs(res) < EPSILON).all(dim=0)  # (..., nb)
-            cid = torch.as_tensor(b.cid, dtype=torch.long, device=x.device)
+            cid = to_device(b.cid, dtype=torch.long, device=x.device)
             unsat.index_add_(-1, cid, bad.to(torch.int32))
         return unsat == 0
 
@@ -366,12 +379,11 @@ class CompiledSystem:
             [np.repeat(np.asarray(b.weight, np.float64), b.spec.dim)
              for b in self.blocks]
         ) if self.blocks else np.zeros((0,))
-        w = torch.as_tensor(rows_w, dtype=r.dtype, device=r.device)
+        w = to_device(rows_w, dtype=r.dtype, device=r.device)
         bad = ~(torch.abs(r) / w < EPSILON)
         unsat = torch.zeros(r.shape[:-1] + (self.n_constraints,),
                             dtype=torch.int32, device=r.device)
-        unsat.index_add_(-1, torch.as_tensor(rows_cid, dtype=torch.long,
-                                             device=r.device),
+        unsat.index_add_(-1, to_device(rows_cid, dtype=torch.long, device=r.device),
                          bad.to(torch.int32))
         return unsat == 0
 

@@ -21,8 +21,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
-import threading
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu", "banded_dynamic.cu",
@@ -179,17 +180,14 @@ def banded_dyn_lanes(bw: int, itemsize: int) -> int:
     return lanes
 
 
-_LAUNCHES_LOCK = threading.Lock()
-
-
 def count_launches(module: str, n: int, route: str = None) -> None:
     """Add ``n`` to the ``LAUNCHES`` counter of the wrapper module named
     ``module`` (to ``LAUNCHES[route]`` when the module counts by route).
-    Under a lock: ``FleetSolver`` launches from one thread per card, and an
-    unguarded read-add-store loses updates (the ctypes launch releases the
-    interpreter lock)."""
+    Under the counters' lock (``tracing.LOCK``): ``FleetSolver`` launches
+    from one thread per card, and an unguarded read-add-store loses updates
+    (the ctypes launch releases the interpreter lock)."""
     mod = sys.modules[module]
-    with _LAUNCHES_LOCK:
+    with tracing.LOCK:
         if route is None:
             mod.LAUNCHES += n
         else:

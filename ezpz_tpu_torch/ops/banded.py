@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import banded_spd
 from .fleet_plan import _jtj_pattern, _rcm_order
 
@@ -176,7 +177,8 @@ def make_banded_spd(n: int, bw: int, perm=None):
     copy of ``A`` is made), ``banded_spd_solve`` on it and ``b[:, perm]``,
     then x gathered back through the inverse permutation. ``BatchSolver``
     calls it on every LM trip (``batch._pick_spd``): its index tensors are
-    copied to a device once, at that device's first call."""
+    copied to a device once, at that device's first call (counted in
+    ``tracing``'s ``h2d.copies``)."""
     p = np.arange(n) if perm is None else np.asarray(perm, dtype=np.int64)
     rows = np.arange(n)[:, None]
     cols = rows - bw + np.arange(bw + 1)[None, :]
@@ -189,6 +191,7 @@ def make_banded_spd(n: int, bw: int, perm=None):
         if dev not in by_device:
             by_device[dev] = tuple(None if t is None else torch.as_tensor(t, device=dev)
                                    for t in tables)
+            tracing.count("h2d.copies", sum(t is not None for t in tables))
         r_idx, c_idx, inside, fwd, inv = by_device[dev]
         band = torch.where(inside, A[:, r_idx, c_idx],
                            torch.zeros((), dtype=A.dtype, device=dev))

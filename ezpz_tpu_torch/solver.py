@@ -34,8 +34,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import tracing
 from .config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
-from .models.compiled import CompiledSystem
+from .models.compiled import CompiledSystem, to_device
 from .ops.linalg import spd_solve
 
 # The mixed path's f32 phase: at most this many trips, toward this residual
@@ -117,46 +118,58 @@ def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
     tensors. ``boundary_parity``: residual convergence counts only while
     steps remain (the reference never re-checks after its last iteration);
     the f64 refinement passes False. ``debug_fn(s, live)``, when given,
-    runs at the top of every trip. Returns ``(final_state, res_conv)``."""
+    runs at the top of every trip. Returns ``(final_state, res_conv)``.
+
+    Spans (``tracing``): a trip (``ezpz.lm.trip``) runs from its dispatch
+    to the read of the next trip's live lanes (``ezpz.lm.read``, where the
+    host waits for the device); the trial residual is ``ezpz.lm.eval``."""
     s = state
     dtype = s.lam.dtype
-    decr = torch.tensor(LM_LAMBDA_DECR, dtype=dtype, device=s.lam.device)
-    incr = torch.tensor(LM_LAMBDA_INCR, dtype=dtype, device=s.lam.device)
-    while True:
+    decr = to_device(LM_LAMBDA_DECR, dtype=dtype, device=s.lam.device)
+    incr = to_device(LM_LAMBDA_INCR, dtype=dtype, device=s.lam.device)
+
+    def read(s):
         rinf = _rows_max_abs(s.r)
         live = ~s.done & (s.it < limit) & (rinf > rtol)
-        if not bool(live.any()):
-            break
-        res_now = (rinf <= rtol) & ~s.done
-        if boundary_parity:
-            res_now = res_now & (s.it < limit)
-        act = ~s.done & ~res_now
+        with tracing.span("ezpz.lm.read"):
+            go = bool(live.any())
+        return rinf, live, go
 
-        if debug_fn is not None:
-            debug_fn(s, live)
-        d, fail, deg_j = step_fn(s, live)
-        step_inf = _rows_max_abs(d)
-        x_new = s.x + d
-        r_new, deg_r = eval_fn(x_new)
-        r2_new = torch.sum(r_new * r_new, dim=-1)
-        accept = ~fail & (r2_new < s.r2)
+    rinf, live, go = read(s)
+    while go:
+        with tracing.span("ezpz.lm.trip"):
+            res_now = (rinf <= rtol) & ~s.done
+            if boundary_parity:
+                res_now = res_now & (s.it < limit)
+            act = ~s.done & ~res_now
 
-        take = act & accept
-        step_conv = act & ~fail & (step_inf <= stol)
-        new = LMState(
-            x=torch.where(take[:, None], x_new, s.x),
-            r=torch.where(take[:, None], r_new, s.r),
-            r2=torch.where(take, r2_new, s.r2),
-            lam=torch.where(act, torch.where(accept, s.lam * decr, s.lam * incr), s.lam),
-            it=torch.where(act, s.it + 1, s.it),
-            done=s.done | res_now | step_conv,
-            converged=s.converged | res_now | step_conv,
-            iterations=torch.where(res_now | step_conv, s.it, s.iterations),
-            deg=s.deg | ((deg_j | deg_r) & act[:, None]),
-        )
-        # Lanes whose loop condition is false keep all of their state.
-        s = LMState(*(torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-                      for a, b in zip(new, s)))
+            if debug_fn is not None:
+                debug_fn(s, live)
+            d, fail, deg_j = step_fn(s, live)
+            step_inf = _rows_max_abs(d)
+            x_new = s.x + d
+            with tracing.span("ezpz.lm.eval"):
+                r_new, deg_r = eval_fn(x_new)
+            r2_new = torch.sum(r_new * r_new, dim=-1)
+            accept = ~fail & (r2_new < s.r2)
+
+            take = act & accept
+            step_conv = act & ~fail & (step_inf <= stol)
+            new = LMState(
+                x=torch.where(take[:, None], x_new, s.x),
+                r=torch.where(take[:, None], r_new, s.r),
+                r2=torch.where(take, r2_new, s.r2),
+                lam=torch.where(act, torch.where(accept, s.lam * decr, s.lam * incr), s.lam),
+                it=torch.where(act, s.it + 1, s.it),
+                done=s.done | res_now | step_conv,
+                converged=s.converged | res_now | step_conv,
+                iterations=torch.where(res_now | step_conv, s.it, s.iterations),
+                deg=s.deg | ((deg_j | deg_r) & act[:, None]),
+            )
+            # Lanes whose loop condition is false keep all of their state.
+            s = LMState(*(torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+                          for a, b in zip(new, s)))
+            rinf, live, go = read(s)
     res_conv = _rows_max_abs(s.r) <= rtol
     if boundary_parity:
         res_conv = res_conv & (s.it < limit)
@@ -186,15 +199,16 @@ def damped_spd_solve(jtj, lam, b, spd=spd_solve):
     ``lam`` is (B,); ``spd`` is the normal-equation solver (``spd_solve``'s
     contract: ``(x, fail)``, x zero-filled on failed lanes), the topology's
     band route where ``batch._pick_spd`` gives one."""
-    n = jtj.shape[-1]
-    eye = torch.eye(n, dtype=jtj.dtype, device=jtj.device)
-    d, fail = spd(jtj + lam[:, None, None] * eye, b)
-    if jtj.dtype != torch.float32:
-        return d, fail
-    diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
-    floor = 1e-6 * _rows_max_abs(diag)
-    d2, fail2 = spd(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
-    return torch.where(fail[:, None], d2, d), fail & fail2
+    with tracing.span("ezpz.lm.damped_solve"):
+        n = jtj.shape[-1]
+        eye = torch.eye(n, dtype=jtj.dtype, device=jtj.device)
+        d, fail = spd(jtj + lam[:, None, None] * eye, b)
+        if jtj.dtype != torch.float32:
+            return d, fail
+        diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
+        floor = 1e-6 * _rows_max_abs(diag)
+        d2, fail2 = spd(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
+        return torch.where(fail[:, None], d2, d), fail & fail2
 
 
 def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
@@ -209,8 +223,8 @@ def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
     equations (``damped_spd_solve``)."""
     dtype = system.dtype
     dev = x0.device
-    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
-    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    rtol = to_device(residual_tolerance, dtype=dtype, device=dev)
+    stol = to_device(step_tolerance, dtype=dtype, device=dev)
     state = _init_state(system, x0, initial_lambda, pars=pars)
 
     def step(s: LMState, _live):
@@ -253,8 +267,8 @@ def solve_gauss_newton(system: CompiledSystem, x0: torch.Tensor,
     B = x.shape[0]
     dev = x.device
     lam = torch.full((B,), initial_lambda, dtype=dtype, device=dev)
-    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
-    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    rtol = to_device(residual_tolerance, dtype=dtype, device=dev)
+    stol = to_device(step_tolerance, dtype=dtype, device=dev)
     it = torch.zeros((B,), dtype=torch.int32, device=dev)
     iterations = it
     done = torch.zeros((B,), dtype=torch.bool, device=dev)  # = converged
@@ -331,8 +345,8 @@ def solve_lm_cg(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
     (its step would be discarded)."""
     dtype = system.dtype
     dev = x0.device
-    rtol = torch.as_tensor(residual_tolerance, dtype=dtype, device=dev)
-    stol = torch.as_tensor(step_tolerance, dtype=dtype, device=dev)
+    rtol = to_device(residual_tolerance, dtype=dtype, device=dev)
+    stol = to_device(step_tolerance, dtype=dtype, device=dev)
     state = _init_state(system, x0, initial_lambda, pars=pars)
 
     def step(s: LMState, live):
@@ -366,8 +380,8 @@ def solve_lm_mixed(system64: CompiledSystem, system32: CompiledSystem,
                           _rows_max_abs(x0).to(f32))
     coarse = solve_lm(
         system32, x0.to(f32), min(max_iterations, COARSE_MAX_ITERATIONS),
-        torch.tensor(COARSE_TOLERANCE, dtype=f32, device=x0.device) * scale,
-        torch.maximum(torch.tensor(step_tolerance, dtype=f32, device=x0.device),
+        to_device(COARSE_TOLERANCE, dtype=f32, device=x0.device) * scale,
+        torch.maximum(to_device(step_tolerance, dtype=f32, device=x0.device),
                       1e-7 * scale),
         initial_lambda, pars=pars32, spd=spd)
     return solve_lm_refine(
@@ -390,9 +404,9 @@ def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
     reported iterations include the coarse count."""
     f64 = system64.dtype
     dev = x_coarse.device
-    rtol = torch.as_tensor(residual_tolerance, dtype=f64, device=dev)
-    stol = torch.as_tensor(step_tolerance, dtype=f64, device=dev)
-    coarse_iterations = torch.as_tensor(coarse_iterations, dtype=torch.int32, device=dev)
+    rtol = to_device(residual_tolerance, dtype=f64, device=dev)
+    stol = to_device(step_tolerance, dtype=f64, device=dev)
+    coarse_iterations = to_device(coarse_iterations, dtype=torch.int32, device=dev)
     refine_limit = torch.clamp(max_iterations - coarse_iterations, 0, REFINE_ITERATIONS)
     state = _init_state(system64, x_coarse, initial_lambda,
                         lam_dtype=system32.dtype, pars=pars64,
@@ -437,7 +451,7 @@ def make_solver(system: CompiledSystem, max_iterations: int,
     system32 = system.astype(torch.float32) if precision == "mixed" else None
 
     def run(x0, residual_tolerance, step_tolerance, initial_lambda):
-        x = torch.as_tensor(x0, dtype=torch.float64, device=dev)[None]
+        x = to_device(x0, dtype=torch.float64, device=dev)[None]
         args = (max_iterations, residual_tolerance, step_tolerance, initial_lambda)
         if system32 is not None:
             res = solve_lm_mixed(system, system32, x, *args)
