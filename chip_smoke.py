@@ -572,7 +572,8 @@ def dense_witness(solver, x0s, pars, spd=None):
 def band_split(run):
     """One ``run(spd_wrapper)`` with CUDA events around every normal-
     equation assembly (``CompiledSystem.normal_equations``) and every
-    factorization (the ``spd`` the wrapper is handed): (ms of the whole
+    factorization (the solve the wrapper is handed: the dense route's
+    ``spd``, the band tier's ``banded_spd_solve``): (ms of the whole
     run, ms in assembly, ms in the factor, LM trips)."""
     import torch
 
@@ -682,14 +683,15 @@ def phase3d(dev, card):
         _wall, band_ms, band_walls = timed(around(lambda k: solver.solve(xs[k + 1], pars)))
         _wall, dense_ms, dense_walls = timed(
             around(lambda k: dense_witness(solver, xs[k + 1], pars)))
-        saved_spd = solver.spd
 
         def band_run(wrap):
-            solver.spd = wrap(saved_spd)
+            # The band tier factors through ``ops.banded.banded_spd_solve``.
+            saved = banded.banded_spd_solve
+            banded.banded_spd_solve = wrap(saved)
             try:
                 solver.solve(xs[1], pars)
             finally:
-                solver.spd = saved_spd
+                banded.banded_spd_solve = saved
 
         for name, run, ms, walls in (
                 ("band tier", band_run, band_ms[0], band_walls),

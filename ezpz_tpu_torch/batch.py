@@ -20,8 +20,9 @@ The batched LM loops (both plain modes, the coarse path's refinement, and
 a kernel mode's topology past the gate) solve their damped normal
 equations with the topology's tier, ``_pick_spd``: a topology of more
 than 24 variables whose identity or RCM ordering has a narrow band
-factors in that band (``ops/banded.make_banded_spd``, the hand-written
-banded kernels on the card), any other densely (``ops/linalg.spd_solve``).
+assembles and factors JtJ in that band (``ops/banded.BandRoute``, the
+hand-written banded kernels on the card), any other densely
+(``ops/linalg.spd_solve``).
 
 The kernel modes need ``precision="mixed"`` and ``batch_params=True`` (the
 JAX package asserts the same). They take a topology only when the kernel
@@ -45,7 +46,7 @@ from . import tracing
 from .config import Config
 from .dof import participation_device, underconstrained_from_participation
 from .models.compiled import CompiledSystem, to_device
-from .ops.banded import make_banded_spd, plan_band
+from .ops.banded import BandRoute, plan_band
 from .ops.coarse_fleet import coarse_fleet_solve
 from .ops.fleet_plan import kernel_admits, plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
@@ -61,16 +62,19 @@ def _pick_spd(system: CompiledSystem):
     with no narrow ordering the library's dense factorization (both
     ``spd_solve``); n > 24 with an identity or RCM ordering whose band is
     narrow (``plan_band``: bw <= 32 and bw + 1 < n // 2) the O(n bw^2)
-    band tier, ``make_banded_spd``. The JAX package's column-sweep tier
-    (24 < n <= 64, no narrow ordering) answers XLA's slow TPU Cholesky and
-    is ``spd_solve`` here. The plan (RCM on the host) runs once per
-    topology, in ``BatchSolver.__init__``."""
+    band tier, a ``BandRoute``: the LM loop then assembles JtJ straight
+    into the (B, n, bw+1) band and damps its diagonal there
+    (``solver._damped_step``), so no (B, n, n) matrix is written. The JAX
+    package's column-sweep tier (24 < n <= 64, no narrow ordering) answers
+    XLA's slow TPU Cholesky and is ``spd_solve`` here. The plans (RCM and
+    the band's assembly plan, on the host) are made once per topology, in
+    ``BatchSolver.__init__``."""
     n = system.n_vars
     if n > UNROLL_MAX_N:
         plan = plan_band(system)
         if plan is not None:
             perm, bw = plan
-            return make_banded_spd(n, bw, perm)
+            return BandRoute(system, perm, bw)
     return spd_solve
 
 

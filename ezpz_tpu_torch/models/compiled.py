@@ -113,10 +113,11 @@ class CompiledSystem:
         return r, deg_acc > 0
 
     def normal_equations(self, x: torch.Tensor, pars=None,
-                         rhs: Optional[torch.Tensor] = None):
+                         rhs: Optional[torch.Tensor] = None, band=None):
         """``(r (B, n_rows), JtJ (B, n, n), Jtr (B, n), degenerate flags
         (B, n_constraints))`` at ``x`` (B, n_vars) (JtJ in diagonal blocks
-        when ``part_size`` is set).
+        when ``part_size`` is set, in the lower band (B, n, bw+1) of a band
+        route ``band``: ``ops.banded.BandRoute``, by ``band_plan``).
 
         Jacobian columns come by forward mode per kernel (``torch.func.jvp``
         with one-hot tangents, one per instance variable). JtJ and Jtr are
@@ -151,7 +152,7 @@ class CompiledSystem:
                 if spec.can_degenerate:
                     cid = to_device(b.cid, dtype=torch.long, device=dev)
                     deg_acc.index_add_(-1, cid, deg.to(torch.int32))
-        jtj, jtr = self._assemble(jj, jr, B, x)
+        jtj, jtr = self._assemble(jj, jr, B, x, band)
         if parts:
             r = torch.cat(parts, dim=-1)
         else:
@@ -260,24 +261,34 @@ class CompiledSystem:
                 J[:, rows, idx[:, a:a + 1]] += torch.stack(col, dim=-1)
         return J
 
-    def _assemble(self, jj, jr, B, like):
+    def _assemble(self, jj, jr, B, like, band=None):
         """Sum per-instance products into JtJ (B, n, n), or its diagonal
-        blocks (B, n / s, s, s) for ``part_size`` s, and Jtr (B, n).
-        ``jj`` holds, per block, one (B, nb) tensor for each (k, l) pair of
-        instance variables; ``jr`` one for each k."""
+        blocks (B, n / s, s, s) for ``part_size`` s, or the lower band (B,
+        n, bw+1) of the route ``band``, and Jtr (B, n). ``jj`` holds, per
+        block, one (B, nb) tensor for each (k, l) pair of instance
+        variables; ``jr`` one for each k. A band assembly counts one
+        ``lm.band_steps`` (``tracing``)."""
         n = self.n_vars
         with tracing.span("ezpz.lm.assemble"):
-            jtj = self._plan_sum(self._assembly[0], jj, B, like)
+            if band is not None:
+                entries, gather, _fwd, _inv = band.tables(like.device)
+                jtj = self._plan_sum((entries, gather, n * (band.bw + 1)), jj, B, like)
+                tracing.count("lm.band_steps")
+            else:
+                jtj = self._plan_sum(self._assembly[0], jj, B, like)
             jtr = self._plan_sum(self._assembly[1], jr, B, like)
+        if band is not None:
+            return jtj.reshape(B, n, band.bw + 1), jtr
         if self.part_size:
             s = self.part_size
             return jtj.reshape(B, n // s, s, s), jtr
         return jtj.reshape(B, n, n), jtr
 
     def _plan_sum(self, plan, vals, B, like):
-        """One of ``_assembly``'s scatter-adds as fixed gathers: ``vals``
-        holds (B, ...) tensors whose concatenated columns are in the plan's
-        numbering ([block, (k[, l]), instance])."""
+        """One of ``_assembly``'s scatter-adds (or ``band_plan``'s) as fixed
+        gathers: ``vals`` holds (B, ...) tensors whose concatenated columns
+        are in the plan's numbering ([block, (k[, l]), instance]); tables
+        already on the device are not copied again."""
         entries, gather, size = plan
         dev = like.device
         cols = (torch.cat(vals, dim=1) if vals
@@ -322,14 +333,30 @@ class CompiledSystem:
             plan.append((np.asarray(entries, dtype=np.int64), gather, size))
         return tuple(plan)
 
-    def refine_normal_equations(self, x64: torch.Tensor, r64: torch.Tensor,
-                                pars=None):
-        """Mixed-precision normal equations for iterative refinement: the
-        Jacobian in this system's dtype (call on the f32 twin) at
-        ``x64`` cast, against the f64 residual ``r64`` cast:
-        ``jtr = J32^T cast(r64)``. Returns ``(jtj, jtr, deg)``."""
-        _r, jtj, jtr, deg = self.normal_equations(x64, pars, rhs=r64)
-        return jtj, jtr, deg
+    def band_plan(self, perm, bw: int):
+        """Host plan of JtJ's lower band (B, n, bw+1) in the ordering
+        ``perm`` (None for the identity; ``ops.banded.plan_band``), in
+        ``_assembly``'s form ``(entries, gather, n * (bw+1))``: band entry
+        ``(i, d)``, flattened ``i * (bw+1) + d``, is the dense entry
+        ``(perm[i], perm[i - bw + d])`` and takes exactly that entry's
+        contribution list, in the same order, so both forms hold the same
+        sums. Band entries with no contributions, and those left of column
+        0, stay zero. Raises ValueError when a JtJ entry lies outside the
+        band."""
+        if self.part_size:
+            raise ValueError("band_plan needs the whole JtJ (part_size 0)")
+        entries, gather, _size = self._assembly[0]
+        n = self.n_vars
+        p = np.arange(n) if perm is None else np.asarray(perm, dtype=np.int64)
+        pos = np.argsort(p)
+        if np.any(np.abs(pos[entries // max(n, 1)] - pos[entries % max(n, 1)]) > bw):
+            raise ValueError(f"JtJ has entries outside the band of half-width {bw}")
+        rows = np.arange(n)[:, None]
+        cols = rows - bw + np.arange(bw + 1)[None, :]
+        keys = np.where(cols >= 0, p[rows] * n + p[np.clip(cols, 0, max(n - 1, 0))], -1)
+        hit = np.isin(keys, entries)
+        return (np.flatnonzero(hit), gather[np.searchsorted(entries, keys[hit])],
+                n * (bw + 1))
 
     def constraint_satisfaction(self, x: torch.Tensor, pars=None) -> torch.Tensor:
         """Per-constraint satisfaction from a fresh evaluation: every

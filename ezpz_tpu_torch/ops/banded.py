@@ -20,10 +20,14 @@ operations, every sum taken in a fixed order, term by term, that the
 kernels repeat (in eager PyTorch that loop is a chain of about
 ``n * (bw^2 + 3 bw)`` launches, which is why the card does not run it).
 
-``plan_band`` and ``make_banded_spd`` are the per-topology band route of
+``plan_band`` and ``BandRoute`` are the per-topology band tier of
 ``BatchSolver``'s normal equations (``batch._pick_spd``, as the JAX
 package's): a topology of more than 24 variables whose identity or RCM
-ordering has a narrow band solves its damped JtJ here on every LM trip.
+ordering has a narrow band assembles its JtJ straight into that band
+(``CompiledSystem.band_plan``) and solves it damped here
+(``solver.damped_band_solve``) on every LM trip; no dense (B, n, n) matrix
+is written. ``make_banded_spd`` is the same solve for a dense matrix whose
+entries outside the band are zero: it gathers the band from it.
 """
 
 from __future__ import annotations
@@ -168,6 +172,61 @@ def plan_band(system):
     return (None if best_perm is None else np.asarray(best_perm)), best_bw
 
 
+def _on_device(by_device: dict, dev, tables):
+    """``tables`` (numpy arrays or None) as tensors on ``dev``, copied there
+    at that device's first call only (counted in ``tracing``'s
+    ``h2d.copies``)."""
+    if dev not in by_device:
+        by_device[dev] = tuple(None if t is None else torch.as_tensor(t, device=dev)
+                               for t in tables)
+        tracing.count("h2d.copies", sum(t is not None for t in tables))
+    return by_device[dev]
+
+
+def _perm_tables(perm):
+    """The ordering ``perm`` and its inverse as index arrays (None, None for
+    the identity): ``b[:, fwd]`` into the ordering, ``x[:, inv]`` back."""
+    if perm is None:
+        return None, None
+    p = np.asarray(perm, dtype=np.int64)
+    return p, np.argsort(p)
+
+
+def _permuted_solve(band, b, fwd, inv):
+    """``banded_spd_solve`` on ``band`` in an ordering and ``b`` in the
+    variables' order; x returned in the variables' order."""
+    x_p, fail = banded_spd_solve(band, b if fwd is None else b[:, fwd])
+    return (x_p, fail) if inv is None else (x_p[:, inv], fail)
+
+
+class BandRoute:
+    """A topology's band tier (``batch._pick_spd``): ``plan_band``'s
+    ordering ``perm`` and half-bandwidth ``bw``, with the topology's plan of
+    JtJ's lower band in that ordering (``CompiledSystem.band_plan``), so
+    that ``CompiledSystem.normal_equations(..., band=route)`` assembles JtJ
+    straight into the (B, n, bw+1) band and ``solver.damped_band_solve``
+    damps its diagonal column and solves it. The plan depends on the
+    topology alone: one route serves a system and its f32 twin, its tables
+    copied to a device once, at that device's first call."""
+
+    def __init__(self, system, perm, bw: int):
+        self.n, self.bw = system.n_vars, bw
+        entries, gather, _size = system.band_plan(perm, bw)
+        self._tables = (entries, gather) + _perm_tables(perm)
+        self._by_device = {}
+
+    def tables(self, dev):
+        """``(entries, gather, fwd, inv)`` on ``dev``: the band plan's
+        tables and the ordering's (None for the identity)."""
+        return _on_device(self._by_device, dev, self._tables)
+
+    def solve(self, band, b):
+        """``banded_spd_solve`` on a band (B, n, bw+1) in the route's
+        ordering, with ``b`` (B, n) and x in the variables' order."""
+        _entries, _gather, fwd, inv = self.tables(band.device)
+        return _permuted_solve(band, b, fwd, inv)
+
+
 def make_banded_spd(n: int, bw: int, perm=None):
     """An ``spd(A, b) -> (x, fail)`` with ``spd_solve``'s contract for dense
     ``A`` (B, n, n) whose entries outside the ``bw``-wide band of the
@@ -175,28 +234,22 @@ def make_banded_spd(n: int, bw: int, perm=None):
     permuted matrix gathered straight from ``A`` (entry ``[i, i - bw + d]``
     of the permuted matrix is ``A[perm[i], perm[i - bw + d]]``; no permuted
     copy of ``A`` is made), ``banded_spd_solve`` on it and ``b[:, perm]``,
-    then x gathered back through the inverse permutation. ``BatchSolver``
-    calls it on every LM trip (``batch._pick_spd``): its index tensors are
-    copied to a device once, at that device's first call (counted in
-    ``tracing``'s ``h2d.copies``)."""
+    then x gathered back through the inverse permutation. Its index tensors
+    are copied to a device once, at that device's first call (counted in
+    ``tracing``'s ``h2d.copies``). ``BatchSolver``'s band tier does not
+    call it: it assembles the band itself (``BandRoute``)."""
     p = np.arange(n) if perm is None else np.asarray(perm, dtype=np.int64)
     rows = np.arange(n)[:, None]
     cols = rows - bw + np.arange(bw + 1)[None, :]
-    tables = (p[rows], p[np.clip(cols, 0, max(n - 1, 0))], cols >= 0,
-              None if perm is None else p, None if perm is None else np.argsort(p))
+    tables = (p[rows], p[np.clip(cols, 0, max(n - 1, 0))], cols >= 0) + _perm_tables(perm)
     by_device = {}
 
     def spd(A, b):
         dev = A.device
-        if dev not in by_device:
-            by_device[dev] = tuple(None if t is None else torch.as_tensor(t, device=dev)
-                                   for t in tables)
-            tracing.count("h2d.copies", sum(t is not None for t in tables))
-        r_idx, c_idx, inside, fwd, inv = by_device[dev]
+        r_idx, c_idx, inside, fwd, inv = _on_device(by_device, dev, tables)
         band = torch.where(inside, A[:, r_idx, c_idx],
                            torch.zeros((), dtype=A.dtype, device=dev))
-        x_p, fail = banded_spd_solve(band, b if fwd is None else b[:, fwd])
-        return (x_p, fail) if inv is None else (x_p[:, inv], fail)
+        return _permuted_solve(band, b, fwd, inv)
 
     return spd
 

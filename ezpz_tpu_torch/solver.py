@@ -37,6 +37,7 @@ import torch
 from . import tracing
 from .config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
 from .models.compiled import CompiledSystem, to_device
+from .ops.banded import BandRoute
 from .ops.linalg import spd_solve
 
 # The mixed path's f32 phase: at most this many trips, toward this residual
@@ -188,8 +189,21 @@ def _reference_result(final: LMState, res_conv, max_iterations: int) -> LMResult
                     residual=final.r)
 
 
+def _rescued(solve, lam, diag):
+    """``solve(lam)`` with ``damped_spd_solve``'s f32 singular-rescue retry:
+    ``solve(max(lam, 1e-6 * max|diag|))`` on the lanes whose first solve
+    failed, where ``diag`` (B, n) is the undamped diagonal."""
+    d, fail = solve(lam)
+    if diag.dtype != torch.float32:
+        return d, fail
+    floor = 1e-6 * _rows_max_abs(diag)
+    d2, fail2 = solve(torch.maximum(lam, floor))
+    return torch.where(fail[:, None], d2, d), fail & fail2
+
+
 def damped_spd_solve(jtj, lam, b, spd=spd_solve):
-    """``spd(jtj + lam*I, b)`` per lane with an f32 singular-rescue retry.
+    """``spd(jtj + lam*I, b)`` per lane with an f32 singular-rescue retry,
+    for a dense ``jtj`` (B, n, n).
 
     In f64 this is one plain factorization (reference-exact). In f32 a
     lane whose factorization FAILS with the raw lambda is re-factored with
@@ -197,18 +211,45 @@ def damped_spd_solve(jtj, lam, b, spd=spd_solve):
     matrix's scale); well-conditioned lanes keep the exact damping. The
     carried lambda is untouched either way (``ezpz_tpu/solver.py:176-202``).
     ``lam`` is (B,); ``spd`` is the normal-equation solver (``spd_solve``'s
-    contract: ``(x, fail)``, x zero-filled on failed lanes), the topology's
-    band route where ``batch._pick_spd`` gives one."""
+    contract: ``(x, fail)``, x zero-filled on failed lanes). The band tier
+    takes ``damped_band_solve`` instead."""
     with tracing.span("ezpz.lm.damped_solve"):
-        n = jtj.shape[-1]
-        eye = torch.eye(n, dtype=jtj.dtype, device=jtj.device)
-        d, fail = spd(jtj + lam[:, None, None] * eye, b)
-        if jtj.dtype != torch.float32:
-            return d, fail
-        diag = torch.diagonal(jtj, dim1=-2, dim2=-1)
-        floor = 1e-6 * _rows_max_abs(diag)
-        d2, fail2 = spd(jtj + torch.maximum(lam, floor)[:, None, None] * eye, b)
-        return torch.where(fail[:, None], d2, d), fail & fail2
+        eye = torch.eye(jtj.shape[-1], dtype=jtj.dtype, device=jtj.device)
+        return _rescued(lambda lam_: spd(jtj + lam_[:, None, None] * eye, b), lam,
+                        torch.diagonal(jtj, dim1=-2, dim2=-1))
+
+
+def damped_band_solve(band, lam, b, route: BandRoute):
+    """``damped_spd_solve``'s contract for a JtJ held in the lower band
+    ``band`` (B, n, bw+1) of the route ``route`` (``normal_equations(...,
+    band=route)``): lambda is added to the band's diagonal column alone, the
+    values the dense route's factor sees (its ``lam * I`` adds exact zeros
+    off the diagonal), the f32 retry is the same, and the band is solved by
+    ``route.solve`` (b into the route's ordering, x back)."""
+    with tracing.span("ezpz.lm.damped_solve"):
+        bw = band.shape[-1] - 1
+
+        def solve(lam_):
+            damped = band.clone()
+            damped[..., bw] += lam_[:, None]
+            return route.solve(damped, b)
+
+        return _rescued(solve, lam, band[..., bw])
+
+
+def _damped_step(system: CompiledSystem, x, lam, spd, pars=None, rhs=None):
+    """The LM step ``-(JtJ + lam I)^-1 Jtr`` at ``x`` (B, n) by ``spd``:
+    ``(d, fail, degenerate flags)``. A band route (``ops.banded.BandRoute``,
+    from ``batch._pick_spd``) keeps JtJ in its band from assembly to
+    factor; any other ``spd`` takes the dense JtJ. ``pars`` and ``rhs``
+    go to ``normal_equations``."""
+    band = spd if isinstance(spd, BandRoute) else None
+    _r, jtj, jtr, deg = system.normal_equations(x, pars, rhs=rhs, band=band)
+    if band is None:
+        d, fail = damped_spd_solve(jtj, lam, -jtr, spd=spd)
+    else:
+        d, fail = damped_band_solve(jtj, lam, -jtr, band)
+    return d, fail, deg
 
 
 def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
@@ -220,7 +261,7 @@ def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
     with (B, n_k, p_k) tensors. ``debug_jac`` prints the dense weighted
     Jacobian of every live lane on every trip (the reference's ``dbg-jac``
     feature, ``solver.rs:370-439``). ``spd`` solves the damped normal
-    equations (``damped_spd_solve``)."""
+    equations (``_damped_step``)."""
     dtype = system.dtype
     dev = x0.device
     rtol = to_device(residual_tolerance, dtype=dtype, device=dev)
@@ -228,9 +269,7 @@ def solve_lm(system: CompiledSystem, x0: torch.Tensor, max_iterations: int,
     state = _init_state(system, x0, initial_lambda, pars=pars)
 
     def step(s: LMState, _live):
-        _r, jtj, jtr, deg_j = system.normal_equations(s.x, pars)
-        d, fail = damped_spd_solve(jtj, s.lam, -jtr, spd=spd)
-        return d, fail, deg_j
+        return _damped_step(system, s.x, s.lam, spd, pars)
 
     debug_fn = None
     if debug_jac:
@@ -413,8 +452,8 @@ def solve_lm_refine(system64: CompiledSystem, system32: CompiledSystem,
                         deg_extra=coarse_deg)
 
     def step(s: LMState, _live):
-        jtj, jtr, deg_j = system32.refine_normal_equations(s.x, s.r, pars32)
-        d32, fail = damped_spd_solve(jtj, s.lam, -jtr, spd=spd)
+        # The f32 twin's Jacobian at x cast, against the f64 residual cast.
+        d32, fail, deg_j = _damped_step(system32, s.x, s.lam, spd, pars32, rhs=s.r)
         return d32.to(f64), fail, deg_j
 
     final, res_conv = _lm_while_loop(

@@ -15,17 +15,20 @@ nothing, at the cost of a flag check. Span names are constant strings,
 * ``ezpz.lm.read``: that read, the host blocked until the device drains;
 * ``ezpz.lm.jacobian``: the Jacobian passes of
   ``CompiledSystem.normal_equations``;
-* ``ezpz.lm.assemble``: the dense JtJ and Jtr assembly
-  (``CompiledSystem._assemble``);
-* ``ezpz.lm.damped_solve``: ``solver.damped_spd_solve``;
+* ``ezpz.lm.assemble``: the JtJ and Jtr assembly
+  (``CompiledSystem._assemble``): JtJ dense, or straight into its lower
+  band on the band tier;
+* ``ezpz.lm.damped_solve``: ``solver.damped_spd_solve`` (dense) or
+  ``solver.damped_band_solve`` (the band tier);
 * ``ezpz.lm.eval``: the trial residual of a trip.
 
 ``count(name, n)`` adds to a process-wide counter on every device, and
 ``counts()`` snapshots them all. ``h2d.copies`` counts the host-to-device
 copies of the batched LM loop and ``CompiledSystem``
-(``models.compiled.to_device``). ``LOCK`` also guards the kernel wrappers'
-``LAUNCHES`` counters (``ops._build.count_launches``): one lock for every
-counter of the port.
+(``models.compiled.to_device``; the band tier's tables once a device);
+``lm.band_steps`` the band tier's JtJ assemblies, one an LM trip.
+``LOCK`` also guards the kernel wrappers' ``LAUNCHES`` counters
+(``ops._build.count_launches``): one lock for every counter of the port.
 """
 
 from __future__ import annotations

@@ -9,6 +9,8 @@
   trips, not on the lanes; a warm ``rect_chain(64)`` solve at the
   benchmark's guesses (three LM steps a lane) makes ``H2D_CHAIN64``, the
   count the benchmark's ``chain64.fleet`` reads a batch on the card.
+  ``lm.band_steps`` counts one a trip of a band-tier solve and none on the
+  dense tier or the fused kernel.
 * ``ops._build.count_launches`` still adds to the wrappers' ``LAUNCHES``,
   under the counters' one lock.
 """
@@ -26,8 +28,11 @@ from ezpz_tpu_torch.ops import _build, banded_spd, fused_fleet
 from ezpz_tpu_torch.ops.linalg import spd_solve
 
 # Host-to-device copies of one warm rect_chain(64) BatchSolver solve
-# (mixed, the band tier; every lane at 3 LM steps).
-H2D_CHAIN64 = 94
+# (mixed, the band tier; every lane at 3 LM steps): 28 outside the trips
+# and 20 a trip. The band tier's JtJ plan lives on the device
+# (``ops.banded.BandRoute``), so a trip no longer copies JtJ's entries and
+# gather tables (94 = 28 + 22 a trip while JtJ was assembled dense).
+H2D_CHAIN64 = 88
 SPANS = ("ezpz.batch.solve", "ezpz.lm.trip", "ezpz.lm.read", "ezpz.lm.jacobian",
          "ezpz.lm.assemble", "ezpz.lm.damped_solve", "ezpz.lm.eval")
 # The span each span opens in (``None``: outside every ``ezpz.*`` span).
@@ -116,10 +121,41 @@ def test_h2d_copies_do_not_grow_with_lanes():
 def test_h2d_copies_of_a_chain64_batch():
     solver, x, pars = _chain(64, 4)
     first, _ = _copies(lambda: solver.solve(x, pars))
+    steps = tracing.counts().get("lm.band_steps", 0)
     n, res = _copies(lambda: solver.solve(x, pars))
     assert (res.iterations == 3).all() and bool(res.converged.all())
     assert n == H2D_CHAIN64
-    assert first == n + 3  # the band's row, column and mask tables
+    # The band plan's entry and gather tables, once (the identity
+    # ordering: no permutation tables).
+    assert first == n + 2
+    assert tracing.counts()["lm.band_steps"] - steps == 3
+
+
+def _band_steps(fn):
+    before = tracing.counts().get("lm.band_steps", 0)
+    out = fn()
+    return tracing.counts().get("lm.band_steps", 0) - before, out
+
+
+def test_band_steps_count_the_band_tiers_trips():
+    solver, x, pars = _chain(4, 3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        steps, res = _band_steps(lambda: solver.solve(x, pars))
+    assert bool(res.converged.all())
+    trips = sum(e.name == "ezpz.lm.trip" for e in prof.events())
+    assert steps == trips >= int(res.iterations.max()) > 0
+    # rect_chain(3): 20 variables, the dense tier and the fused kernel's gate.
+    cons, x0 = fixtures.rect_chain(3)
+    system = compile_system(cons, len(x0))
+    xb = torch.as_tensor(x0 + np.random.default_rng(1).normal(0.0, 0.05, (3, len(x0))))
+    pars = tuple(torch.as_tensor(b.par).expand(3, -1, -1).contiguous()
+                 for b in system.blocks)
+    for kw in ({}, {"pallas_fused": True}):
+        solver = BatchSolver(system, Config(), batch_params=True, precision="mixed",
+                             device="cpu", **kw)
+        assert solver.spd is spd_solve and solver.kernel_ok == bool(kw)
+        steps, res = _band_steps(lambda: solver.solve(xb, pars))
+        assert steps == 0 and bool(res.converged.all()), kw
 
 
 def test_count_launches_adds_under_the_counters_lock():
