@@ -1,10 +1,21 @@
 """The comparison that decides ``correct``.
 
 Each case is a sketch the timed path solved: the lane's parameters and
-guesses, and the program's answer. The reference (``reference/lm.py``)
-solves the same case in float64 and judges the program's answer by its
-own residuals. The numbers, each with the limit of the cell
-(``limits/<cell>.json``):
+guesses, and the program's answer. The cell's reference, the module
+``reference/<name>.py`` that its configuration names under
+``"reference"``, solves the same case in float64 and judges the
+program's answer by its own residuals. A reference module provides:
+
+* ``solve(sketch, params, guess, dtype)``: the case solved from ``guess``
+  with ``params``, every step in ``dtype``, as an ``Answer`` (``x``,
+  ``converged``, ``satisfied`` and ``solved``, as ``reference/lm.py``'s);
+* ``max_residual(sketch, params, x)``: the widest residual row of ``x``
+  in float64, infinite if one is not finite;
+* ``residual(kinds, ids, params, x)``: the residual rows, which the tests
+  compare with the program's own rows.
+
+It imports nothing of the program. The numbers, each with the limit of
+the cell (``limits/<cell>.json``):
 
 * ``resid``: the widest residual row, in float64, of the program's answer
   over the cases the program reports solved and the reference solves too
@@ -20,21 +31,20 @@ from __future__ import annotations
 
 import numpy as np
 
-from portbench.reference import lm
-
 NAMES = ("resid", "x_gap", "flags_off")
 
 
-def numbers(sketch, cases) -> dict:
-    """The numbers over ``cases``, judged by the float64 reference."""
+def numbers(reference, sketch, cases) -> dict:
+    """The numbers over ``cases``, judged by the module ``reference`` in
+    float64."""
     resid = x_gap = 0.0
     both = flags_off = 0
     for params, guess, answer in cases:
-        ref = lm.solve(sketch, params, guess)
+        ref = reference.solve(sketch, params, guess)
         flags_off += answer.solved != ref.solved
         if answer.solved and ref.solved:
             both += 1
-            resid = max(resid, lm.max_residual(sketch, params, answer.x))
+            resid = max(resid, reference.max_residual(sketch, params, answer.x))
             scale = max(1.0, float(np.max(np.abs(ref.x))))
             gap = np.abs(answer.x - ref.x)
             x_gap = max(x_gap, float(gap.max()) / scale if np.isfinite(gap).all()
@@ -44,10 +54,10 @@ def numbers(sketch, cases) -> dict:
     return {"resid": resid, "x_gap": x_gap, "flags_off": flags_off, "cases": len(cases)}
 
 
-def control_cases(sketch, cases, dtype=np.float32):
-    """The control: the same cases with the reference, computed in
-    ``dtype``, in the program's place."""
-    return [(p, g, lm.solve(sketch, p, g, dtype=dtype)) for p, g, _answer in cases]
+def control_cases(reference, sketch, cases, dtype=np.float32):
+    """The control: the same cases with the module ``reference``, computed
+    in ``dtype``, in the program's place."""
+    return [(p, g, reference.solve(sketch, p, g, dtype=dtype)) for p, g, _answer in cases]
 
 
 def verdict(found: dict, limits: dict):

@@ -2,13 +2,15 @@
 
 A cell is a ``workloads`` entry of ``BENCHMARK.json``: a configuration
 (``configs/<config>.json``, whose ``sketch`` names its generator
-``sketches/<sketch>.py``), a traffic mix (``traffic/<traffic>.json``,
-whose ``loop`` names its loop ``loops/<loop>.py``) and its limits
-(``limits/<cell>.json``). A per-layer metric is read by
+``sketches/<sketch>.py`` and whose ``reference`` its plain reference
+``reference/<reference>.py``), a traffic mix (``traffic/<traffic>.json``,
+whose ``loop`` names its loop ``loops/<loop>.py``), its limits
+(``limits/<cell>.json``) and its size for a rehearsal on the CPU
+(``rehearsal/<cell>.json``, the tests'). A per-layer metric is read by
 ``metrics/<name>.py``, or, where there is none, by the reader of its
 quantity, ``metrics/<name up to its last dot>.py`` (``device_idle_pct``
 for ``device_idle_pct.fleet``), whose ``read(summary)`` takes it from the
-traced run's summary (``trace.summarize``) or returns None. Nothing here
+traced run's summary (``traced_window``) or returns None. Nothing here
 names a cell.
 
 A run: set-up (the port loaded, the sketch built, the solvers made, the
@@ -31,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench import check, trace
+from portbench import check, spans, trace
 
 HERE = Path(__file__).resolve().parent
 BENCHMARK = HERE.parent / "BENCHMARK.json"
@@ -100,6 +102,10 @@ class Cell:
         self.chips = spec["chips"]
         self.device = torch.device(device)
         self.cfg = {**data("configs", spec["config"]), **overrides.get("config", {})}
+        if "reference" not in self.cfg:
+            raise SystemExit(f"portbench: configs/{spec['config']}.json names no reference "
+                             f"(its key \"reference\": a module reference/<name>.py)")
+        self.reference = module("reference", self.cfg["reference"])
         self.traffic = {**data("traffic", spec["traffic"]), **overrides.get("traffic", {})}
         self.limits = data("limits", name)
         self.end_to_end = [m for m in bench["end_to_end"] if _applies(m, name)]
@@ -129,6 +135,37 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
+def traced_window(cell: Cell, count: int, keep):
+    """``count`` steady iterations of the cell's loop under
+    ``torch.profiler``, after ``PROFILER_WARMUP`` more, keeping the
+    answers of the iterations in ``keep``. Returns (the summary, systems
+    attempted, systems solved). The summary is ``trace.summarize``'s over
+    the window, with the program's spans (``spans.summarize``, the same
+    trace), the change of its counters across the window (``counters``,
+    read inside it) and the loop's count of the work (``work``)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cell.device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        cell.loop.run(count=PROFILER_WARMUP)
+        cell.sync()
+        with torch.profiler.record_function(trace.WINDOW):
+            before = spans.program_counts()
+            _wall, _iters, attempted, solved = cell.loop.run(count=count, keep=keep)
+            cell.sync()
+            after = spans.program_counts()
+    path = trace.trace_path()
+    prof.export_chrome_trace(str(path))
+    events = trace.read_trace(path)
+    path.unlink()
+    summary = trace.summarize(events, count)
+    summary["spans"] = spans.summarize(events)
+    summary["counters"] = {k: v - before.get(k, 0) for k, v in after.items()
+                           if v != before.get(k, 0)}
+    summary["work"] = cell.loop.work(count)
+    return summary, attempted, solved
+
+
 def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
              overrides=None, t_start=None):
     """One run. Returns (the result's JSON object, the lines for standard
@@ -156,21 +193,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
         lines.append(f"window: {wall!r} s, {iters} iterations")
     else:
         count = cell.traffic["trace_iterations"]
-        keep = loop.keep_for(rng, count)
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if cell.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
-            loop.run(count=PROFILER_WARMUP)
-            cell.sync()
-            with torch.profiler.record_function(trace.WINDOW):
-                _wall, iters, attempted, solved = loop.run(count=count, keep=keep)
-                cell.sync()
-        path = trace.trace_path()
-        prof.export_chrome_trace(str(path))
-        summary = trace.summarize(trace.read_trace(path), count)
-        path.unlink()
-        summary["work"] = loop.work(count)
+        summary, attempted, solved = traced_window(cell, count, loop.keep_for(rng, count))
         for m in cell.per_layer:
             value = reader(m["name"]).read(summary)
             if value is not None:
@@ -178,6 +201,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
         result["breakdown"] = summary["breakdown"]
         lines.append(f"traced window: {summary['window_s']!r} s, {count} iterations, "
                      f"device busy {summary['busy_s']!r} s, {summary['kernels']} kernels")
+        lines += spans.lines(summary)
     lines.append(f"LM trips: {json.dumps(loop.trips())}")
     after = _counters()
     lines.append("launch counters over the window: " + json.dumps(
@@ -195,7 +219,7 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device="cuda",
         result["device"].update(busy_s=summary["busy_s"], window_s=summary["window_s"])
     lines.append(f"setup_s {setup_s!r}")
 
-    found = check.numbers(cell.sketch, loop.answers(rng))
+    found = check.numbers(cell.reference, cell.sketch, loop.answers(rng))
     result["correct"], result["checks"] = check.verdict(found, cell.limits)
     lines.append(f"checked {found['cases']} answers against the reference")
     lines += [f"check {k}: {v['value']!r} (limit {v['limit']!r})"

@@ -6,12 +6,12 @@ in one process on the chip, at the cell's own size and load.
     python3 portbench/readings.py --workload chain64.fleet --seeds 12 --control 3 --seconds 2
 
 Each seed makes the cell's input pool, runs a short window of the timed
-path and compares the answers the check samples (``check.numbers``). On
-the first ``--control`` seeds, the control then answers the same sampled
-cases: the reference, computed in float32, in the program's place
-(``check.control_cases``). One JSON line a reading, then the largest
-program reading and the smallest control reading of each number. The
-benchmark's own runs never run this.
+path and compares the answers the check samples with the cell's
+reference (``check.numbers``). On the first ``--control`` seeds, the
+control then answers the same sampled cases: the reference, computed in
+float32, in the program's place (``check.control_cases``). One JSON line
+a reading, then the largest program reading and the smallest control
+reading of each number. The benchmark's own runs never run this.
 """
 
 import argparse
@@ -44,11 +44,12 @@ def main(argv=None) -> int:
         cell.loop.prepare(seed)
         cell.loop.run(seconds=args.seconds, keep=cell.loop.keep_for(rng))
         cases = cell.loop.answers(rng)
-        found = check.numbers(cell.sketch, cases)
+        found = check.numbers(cell.reference, cell.sketch, cases)
         program.append(found)
         print(json.dumps({"seed": seed, "side": "program", **found}), flush=True)
         if j < args.control:
-            found = check.numbers(cell.sketch, check.control_cases(cell.sketch, cases))
+            found = check.numbers(cell.reference, cell.sketch,
+                                  check.control_cases(cell.reference, cell.sketch, cases))
             control.append(found)
             print(json.dumps({"seed": seed, "side": "control", **found}), flush=True)
     print(json.dumps({

@@ -18,15 +18,20 @@ trace as ``trace.summarize``, over the same window (``trace.WINDOW``):
   benchmark's own work, or a program without spans);
 * ``unattributed``: device seconds with no launch event in the trace;
 * ``solve_idle_s``: the idle seconds while the host was inside
-  ``ezpz.batch.solve``.
+  ``ezpz.batch.solve``;
+* ``runtime``: the blocking runtime calls in the window (``RUNTIME_SHOWN``).
 
-The command runs the cell as ``run.py --trace 1`` does (set-up, warm-up
-batches under the profiler, then the window), with the program's counters
-read at the window's edges, and prints its ``spans:``, ``counters:`` and
-``runtime:`` lines (per batch) and, last, one JSON object: the per-layer
-readings these spans and counters give. The benchmark's own runs never run
-it. A program without ``ezpz_tpu_torch.tracing`` gives no counters and
-puts every device second under ``outside``.
+The harness's traced run (``harness.traced_window``) puts this summary in
+its own under ``spans``, and the change of the program's counters across
+the window under ``counters``; ``readings`` turns both into the per-layer
+readings that the readers ``metrics/lm_*_ms.py``, ``solve_idle_pct.py``
+and ``h2d_copies_per_batch.py`` report, and ``lines`` into the run's
+``spans:``, ``counters:`` and ``runtime:`` lines (per batch). The command
+is that traced run (``run.py --trace 1``'s, on any ``--device``): it
+prints the run's lines and, last, one JSON object with the readings. The
+benchmark's own runs never run it. A program without
+``ezpz_tpu_torch.tracing`` gives no counters and puts every device second
+under ``outside``.
 """
 
 from __future__ import annotations
@@ -139,9 +144,14 @@ def summarize(events) -> dict:
         (outside if k is None else rows[spans[k][2]])["idle_s"] += (b - a) / 1e6
     solves = trace._merged((a, b) for a, b, name in spans if name == SOLVE)
     solve_idle = sum(max(0.0, min(b, d) - max(a, c)) for a, b in gaps for c, d in solves)
+    runtime = defaultdict(int)
+    for e in xs:
+        if (e.get("cat") in LAUNCH_CATS and e["name"] in RUNTIME_SHOWN
+                and w0 <= float(e["ts"]) <= w1):
+            runtime[e["name"]] += 1
     return {"window_s": (w1 - w0) / 1e6, "busy_s": sum(b - a for a, b in busy) / 1e6,
             "spans": dict(rows), "outside": outside, "unattributed": unattributed,
-            "solve_idle_s": solve_idle / 1e6}
+            "solve_idle_s": solve_idle / 1e6, "runtime": dict(sorted(runtime.items()))}
 
 
 def _innermost_parents(spans):
@@ -176,16 +186,38 @@ def readings(spans: dict, counters: dict, batches: int) -> dict:
     return out
 
 
-def _runtime(events, w0, w1, batches):
-    counted = defaultdict(int)
-    for e in events:
-        if (e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS and e["name"] in RUNTIME_SHOWN
-                and w0 <= float(e["ts"]) <= w1):
-            counted[e["name"]] += 1
-    return {k: v / batches for k, v in sorted(counted.items())}
+def reading(summary: dict, name: str):
+    """The reading ``name`` of ``readings`` over a traced run's summary
+    (``harness.traced_window``); None where it is absent or nothing ran on
+    the device."""
+    if summary["busy_s"] <= 0:
+        return None
+    return readings(summary["spans"], summary["counters"], summary["iterations"]).get(name)
 
 
-def _program_counts():
+def lines(summary: dict) -> list:
+    """The ``spans:``, ``counters:`` and ``runtime:`` lines of a traced
+    run's summary, a batch: span counts and host, self, device and idle
+    ms; the counters' changes; the blocking runtime calls."""
+    found, count = summary["spans"], summary["iterations"]
+    per = 1e3 / count
+    return [
+        "spans: " + json.dumps({
+            **{name: {"count": r["count"] / count, "host_ms": r["host_s"] * per,
+                      "self_ms": r["self_s"] * per, "device_ms": r["device_s"] * per,
+                      "idle_ms": r["idle_s"] * per}
+               for name, r in sorted(found["spans"].items())},
+            "outside": {"device_ms": found["outside"]["device_s"] * per,
+                        "idle_ms": found["outside"]["idle_s"] * per},
+            "unattributed": {"device_ms": found["unattributed"]["device_s"] * per}}),
+        "counters: " + json.dumps({k: v / count for k, v in sorted(summary["counters"].items())}),
+        "runtime: " + json.dumps({k: v / count for k, v in found["runtime"].items()}),
+    ]
+
+
+def program_counts() -> dict:
+    """The program's counters (``ezpz_tpu_torch.tracing.counts()``), or
+    none where it has no ``tracing``."""
     try:
         from ezpz_tpu_torch import tracing
     except ImportError:
@@ -201,57 +233,16 @@ def main(argv=None, overrides=None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    import numpy as np
-    import torch
-
     from portbench import harness
 
-    cell = harness.Cell(args.workload, args.device, overrides)
-    loop = cell.loop
-    loop.prepare(args.seed)
-    cell.sync()
-    count = cell.traffic["trace_iterations"]
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if cell.device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        loop.run(count=harness.PROFILER_WARMUP)
-        cell.sync()
-        with torch.profiler.record_function(trace.WINDOW):
-            before = _program_counts()
-            wall, _iters, attempted, solved = loop.run(
-                count=count, keep=loop.keep_for(np.random.default_rng(args.seed), count))
-            cell.sync()
-            after = _program_counts()
-    path = trace.trace_path()
-    prof.export_chrome_trace(str(path))
-    events = trace.read_trace(path)
-    path.unlink()
-    base = trace.summarize(events, count)
-    found = summarize(events)
-    counters = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
-    per = 1e3 / count
-    print(f"traced window: {base['window_s']!r} s, {count} batches, {solved} of {attempted} "
-          f"systems solved ({solved / wall!r} systems/s traced), device busy "
-          f"{base['busy_s']!r} s, {base['kernels']} kernels", flush=True)
-    print("spans: " + json.dumps({
-        **{name: {"count": r["count"] / count, "host_ms": r["host_s"] * per,
-                  "self_ms": r["self_s"] * per, "device_ms": r["device_s"] * per,
-                  "idle_ms": r["idle_s"] * per}
-           for name, r in sorted(found["spans"].items())},
-        "outside": {"device_ms": found["outside"]["device_s"] * per,
-                    "idle_ms": found["outside"]["idle_s"] * per},
-        "unattributed": {"device_ms": found["unattributed"]["device_s"] * per}}), flush=True)
-    print("counters: " + json.dumps({k: v / count for k, v in sorted(counters.items())}),
-          flush=True)
-    print("runtime: " + json.dumps(_runtime(events, *window(events), count)),
-          flush=True)
-    device_s = (sum(r["device_s"] for r in found["spans"].values())
-                + found["outside"]["device_s"] + found["unattributed"]["device_s"])
-    print(json.dumps({"workload": args.workload, "seed": args.seed, "batches": count,
-                      "busy_s": base["busy_s"], "window_s": base["window_s"],
-                      "device_s": device_s, "breakdown": base["breakdown"]["idle_gaps"],
-                      **readings(found, counters, count)}), flush=True)
+    result, run_lines = harness.run_cell(args.workload, args.seed, 0.0, True,
+                                         device=args.device, overrides=overrides)
+    for line in run_lines:
+        print(line, flush=True)
+    print(json.dumps({"workload": args.workload, "seed": args.seed,
+                      "correct": result["correct"], **result["device"],
+                      "idle_gaps": result["breakdown"]["idle_gaps"],
+                      **{k: v["value"] for k, v in result["metrics"].items()}}), flush=True)
     return 0
 
 

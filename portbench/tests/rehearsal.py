@@ -1,5 +1,7 @@
 """The cells resized for a rehearsal on the CPU (the kernels' plain
-versions), shared by the tests."""
+versions), shared by the tests. Each cell's size is its own file,
+``portbench/rehearsal/<cell>.json``: the overrides of its configuration
+and traffic (``harness.Cell``)."""
 
 import sys
 from pathlib import Path
@@ -8,22 +10,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from portbench import harness  # noqa: E402
 
-SMALL = {
-    "massive.fleet": {"config": {"total_lines": 30},
-                      "traffic": {"systems_per_batch": 3, "pool": 2, "trace_iterations": 2}},
-    "chain64.fleet": {"config": {"rectangles": 5},
-                      "traffic": {"systems_per_batch": 3, "pool": 2, "trace_iterations": 2,
-                                  "check_systems_per_batch": 3}},
-}
-CELLS = tuple(SMALL)
+CELLS = tuple(w["name"] for w in harness.benchmark()["workloads"])
 SEED = 2**33 + 12345
+
+
+def overrides(name):
+    """The cell's rehearsal file."""
+    return harness.data("rehearsal", name)
 
 
 def cell(name, device="cpu"):
     """The rehearsal's ``harness.Cell``."""
-    return harness.Cell(name, device, SMALL[name])
+    return harness.Cell(name, device, overrides(name))
 
 
 def rehearse(name, traced=False, seconds=0.3, seed=SEED):
     """One rehearsal run on the CPU: (result, stderr lines)."""
-    return harness.run_cell(name, seed, seconds, traced, device="cpu", overrides=SMALL[name])
+    return harness.run_cell(name, seed, seconds, traced, device="cpu", overrides=overrides(name))

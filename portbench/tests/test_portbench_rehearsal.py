@@ -8,13 +8,33 @@ from pathlib import Path
 
 import pytest
 
-from rehearsal import CELLS, cell as rehearsal_cell, harness, rehearse
+from rehearsal import CELLS, cell as rehearsal_cell, harness, overrides, rehearse
 
 REPO = Path(__file__).resolve().parents[2]
 
 
 def test_every_cell_has_a_rehearsal():
-    assert {w["name"] for w in harness.benchmark()["workloads"]} == set(CELLS)
+    """Every workload has its rehearsal file, which resizes only its
+    configuration and traffic."""
+    assert CELLS
+    for name in CELLS:
+        path = harness.HERE / "rehearsal" / f"{name}.json"
+        assert path.is_file(), name
+        assert set(json.loads(path.read_text())) <= {"config", "traffic"}, name
+
+
+def test_a_configuration_without_a_reference_stops(monkeypatch):
+    """No silent default: a configuration that names no reference module
+    stops the run with a message that says so."""
+    real = harness.data
+
+    def data(kind, name):
+        found = real(kind, name)
+        return {k: v for k, v in found.items() if k != "reference"} if kind == "configs" else found
+
+    monkeypatch.setattr(harness, "data", data)
+    with pytest.raises(SystemExit, match="names no reference"):
+        harness.Cell(CELLS[0], "cpu", overrides(CELLS[0]))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -54,7 +74,9 @@ def test_benchmark_json_names_every_file_it_needs():
     root = REPO / "portbench"
     for c in bench["configs"]:
         assert (REPO / c["file"]).is_file()
-        assert json.loads((REPO / c["file"]).read_text())["name"] == c["name"]
+        cfg = json.loads((REPO / c["file"]).read_text())
+        assert cfg["name"] == c["name"]
+        assert (root / "reference" / f"{cfg['reference']}.py").is_file()
     for w in bench["workloads"]:
         traffic = root / "traffic" / f"{w['traffic']}.json"
         assert (root / "loops" / f"{json.loads(traffic.read_text())['loop']}.py").is_file()

@@ -62,15 +62,21 @@ def _readers():
 
 
 def test_readers_find_nothing_without_a_device():
+    span = dict(count=2, host_s=0.1, self_s=0.1, device_s=0.0, idle_s=0.0)
     summary = {"iterations": 2, "window_s": 1.0, "busy_s": 0.0, "kernels": 0,
-               "device_ops": {}, "work": {"batches": 2, "buckets": []}}
+               "device_ops": {}, "work": {"batches": 2, "buckets": []},
+               "spans": {"window_s": 1.0, "busy_s": 0.0, "solve_idle_s": 0.0,
+                         "spans": {"ezpz.batch.solve": span, "ezpz.lm.jacobian": span}},
+               "counters": {"h2d.copies": 176}}
     for name, mod in _readers().items():
         assert mod.read(summary) is None, name
 
 
 def test_readers_by_hand():
     """A summary with two batches of one fused launch and one PyTorch
-    kernel each, and one host-to-device copy."""
+    kernel each, and one host-to-device copy; the program's spans charge
+    1 ms of device time to its Jacobian and 0.5 ms to its damped solves,
+    3 ms of idle fall inside its solves, and its counter reads 176 copies."""
     fused = "void fused_small_kernel<1, 1>(double const*)"
     summary = {"iterations": 2, "window_s": 0.01, "busy_s": 0.004, "kernels": 4,
                "device_ops": {fused: {"count": 2, "seconds": 0.002, "cat": "kernel"},
@@ -79,7 +85,12 @@ def test_readers_by_hand():
                               "Memcpy HtoD (Pageable -> Device)": {
                                   "count": 1, "seconds": 0.001, "cat": "gpu_memcpy"}},
                "work": {"batches": 2, "buckets": [dict(n=1, m=1, params=1, reads=[1], bw=0,
-                                                       lanes=10 ** 6, steps=2 * 10 ** 6)]}}
+                                                       lanes=10 ** 6, steps=2 * 10 ** 6)]},
+               "spans": {"window_s": 0.01, "busy_s": 0.004, "solve_idle_s": 0.003,
+                         "spans": {"ezpz.batch.solve": {"device_s": 0.0},
+                                   "ezpz.lm.jacobian": {"device_s": 0.001},
+                                   "ezpz.lm.damped_solve": {"device_s": 0.0005}}},
+               "counters": {"h2d.copies": 176, "lm.band_steps": 6}}
     read = {name: mod.read(summary) for name, mod in _readers().items()}
     bound = roofline.fleet_bound_s(summary["work"]["buckets"], 2)
     assert np.isclose(read["fused_fleet.roofline_pct"], 100 * bound / 0.002)
@@ -87,3 +98,8 @@ def test_readers_by_hand():
     assert read["launches_per_batch.chain"] == 2
     assert np.isclose(read["device_idle_pct.fleet"], 60.0)
     assert read["band_solve.roofline_pct"] is None
+    assert np.isclose(read["lm_jacobian_ms.chain"], 0.5)
+    assert read["lm_assembly_ms.chain"] is None
+    assert np.isclose(read["lm_damped_solve_ms.chain"], 0.25)
+    assert read["h2d_copies_per_batch.chain"] == 88
+    assert np.isclose(read["solve_idle_pct.fleet"], 30.0)

@@ -1,13 +1,13 @@
 """``portbench/spans.py``: the program's spans read from a hand-built Chrome
 trace, checked by hand; the trace's summary (``trace.summarize``) and the
-accepted readers on the same events; and one traced rehearsal of
-``chain64.fleet`` on the CPU."""
+accepted readers on the same events; the spans and counters in the
+summary of traced rehearsals on the CPU; and the command."""
 
 import json
 
 import pytest
 
-from rehearsal import SMALL, harness
+from rehearsal import SEED, harness, overrides
 from portbench import spans, trace
 
 
@@ -99,9 +99,16 @@ def test_summary_and_accepted_readers_on_the_same_events():
     assert gaps["ezpz.batch.solve"] == pytest.approx(410e-6)
     assert gaps["host outside any operation"] == pytest.approx(240e-6)
     base["work"] = {"batches": 1, "buckets": []}
+    base["spans"] = spans.summarize(EVENTS)
+    base["counters"] = {"h2d.copies": 94, "lm.band_steps": 3}
     expected = {"device_idle_pct.fleet": 79.0, "launches_per_batch.chain": 4.0,
                 "torch_ops_ms.chain": 0.2, "fused_fleet.roofline_pct": None,
-                "band_solve.roofline_pct": None}
+                "band_solve.roofline_pct": None,
+                # The span readers, as ``spans.readings`` reads the same
+                # events (test_readings_by_hand), over one batch.
+                "lm_jacobian_ms.chain": 0.05, "lm_assembly_ms.chain": None,
+                "lm_damped_solve_ms.chain": None, "h2d_copies_per_batch.chain": 94.0,
+                "solve_idle_pct.fleet": 44.0}
     for m in harness.benchmark()["per_layer"]:
         got, want = harness.reader(m["name"]).read(base), expected[m["name"]]
         assert got == want if want is None else got == pytest.approx(want), m["name"]
@@ -115,24 +122,53 @@ def test_a_trace_without_spans_puts_everything_outside():
     assert spans.readings(found, {}, 1) == {}
 
 
+def _lm_loop(cell):
+    """The cell's rehearsal with the kernel modes off: the rehearsal's chain
+    is small enough for the fused kernel's gate, and so takes the batched
+    LM loop, as the full-size chain does past the gate."""
+    small = overrides(cell)
+    return {**small, "traffic": {**small["traffic"], "solver": {"precision": "mixed"}}}
+
+
+LM_SPANS = ("ezpz.batch.solve", "ezpz.lm.trip", "ezpz.lm.read", "ezpz.lm.jacobian",
+            "ezpz.lm.assemble", "ezpz.lm.damped_solve", "ezpz.lm.eval")
+
+
+@pytest.mark.parametrize("cell,lm_loop", [("massive.fleet", False), ("chain64.fleet", True)])
+def test_traced_summary_carries_spans_and_counters(cell, lm_loop):
+    """The traced window's summary on the CPU: the program's spans from the
+    same trace, and its counters' change across the window (the chain's
+    host-to-device copies, which the fused kernel's path makes none of);
+    the span readers read nothing, since no device ran."""
+    c = harness.Cell(cell, "cpu", _lm_loop(cell) if lm_loop else overrides(cell))
+    c.loop.prepare(SEED)
+    summary, attempted, solved = harness.traced_window(c, 2, set())
+    assert attempted == solved > 0
+    found = summary["spans"]["spans"]
+    assert found["ezpz.batch.solve"]["count"] >= 2
+    assert summary["spans"]["window_s"] == pytest.approx(summary["window_s"])
+    if lm_loop:
+        assert all(found[name]["count"] >= 2 for name in LM_SPANS)
+        assert summary["counters"]["h2d.copies"] > 0
+    for name in ("lm_jacobian_ms", "solve_idle_pct", "h2d_copies_per_batch"):
+        assert spans.reading(summary, name) is None, name
+
+
 def test_chain_rehearsal_reads_every_span(capsys):
-    """The command's protocol on the CPU at the rehearsal's size: every
-    span of the batched LM loop opens in the window, the counter reads a
-    batch's copies, and no device time is read. The rehearsal's chain is
-    small enough for the fused kernel's gate, so the kernel modes are
-    turned off: it takes the batched LM loop, as the full-size chain does
-    past the gate."""
-    small = SMALL["chain64.fleet"]
-    overrides = {**small, "traffic": {**small["traffic"], "solver": {"precision": "mixed"}}}
+    """The command: the harness's traced run on the CPU at the rehearsal's
+    size, its lines, then its readings. Every span of the batched LM loop
+    opens in the window, the counter reads a batch's copies, and no device
+    time is read, so no per-layer metric is written."""
     rc = spans.main(["--workload", "chain64.fleet", "--seed", "12345", "--device", "cpu"],
-                    overrides=overrides)
+                    overrides=_lm_loop("chain64.fleet"))
     assert rc == 0
     out = capsys.readouterr().out.splitlines()
     line = json.loads(out[-1])
-    assert line["h2d_copies_per_batch"] > 0 and line["device_s"] == 0.0
-    assert "solve_idle_pct" not in line  # no device ran
-    found = json.loads(out[1].removeprefix("spans: "))
-    for name in ("ezpz.batch.solve", "ezpz.lm.trip", "ezpz.lm.read", "ezpz.lm.jacobian",
-                 "ezpz.lm.assemble", "ezpz.lm.damped_solve", "ezpz.lm.eval"):
-        assert found[name]["count"] >= 1, name
-    assert found["ezpz.batch.solve"]["count"] == 1.0
+    assert line["correct"] and line["busy_s"] == 0.0
+    assert not {m["name"] for m in harness.benchmark()["per_layer"]} & set(line)
+    shown = {k: json.loads(v) for k, _, v in (o.partition(": ") for o in out[:-1])
+             if k in ("spans", "counters", "runtime")}
+    for name in LM_SPANS:
+        assert shown["spans"][name]["count"] >= 1, name
+    assert shown["spans"]["ezpz.batch.solve"]["count"] == 1.0
+    assert shown["counters"]["h2d.copies"] > 0 and shown["runtime"] == {}
