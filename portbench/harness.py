@@ -4,7 +4,9 @@ A cell is a ``workloads`` entry of ``BENCHMARK.json``: a configuration
 (``configs/<config>.json``, whose ``sketch`` names its generator
 ``sketches/<sketch>.py`` and whose ``reference`` its plain reference
 ``reference/<reference>.py``), a traffic mix (``traffic/<traffic>.json``,
-whose ``loop`` names its loop ``loops/<loop>.py``), its limits
+whose ``loop`` names its loop ``loops/<loop>.py``: ``Loop``, whose
+``answers`` the check reads and whose ``work`` the readers count, and
+``plant``, which breaks the call it times for the tests), its limits
 (``limits/<cell>.json``) and its size for a rehearsal on the CPU
 (``rehearsal/<cell>.json``, the tests'). A per-layer metric is read by
 ``metrics/<name>.py``, or, where there is none, by the reader of its

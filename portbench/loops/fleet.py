@@ -9,8 +9,10 @@ pool of ``pool`` input sets made on the device at set-up, each lane's from
 ``sketches/<sketch>.lanes`` and drawn from ``--seed``.
 
 A loop file (``loops/<loop>.py``, named by the traffic file's ``loop``)
-defines ``Loop``; it keeps the answers the check reads (``answers``) and
-the work the per-layer readers count (``work``).
+defines ``Loop``, which keeps the answers the check reads (``answers``) and
+the work the per-layer readers count (``work``), and ``plant(patch,
+change)``, which breaks the call the loop times for the tests of the
+check: here ``BatchSolver.solve``.
 """
 
 from __future__ import annotations
@@ -175,3 +177,20 @@ class Loop:
                                 steps=sum(self.steps[k % len(self.pool)][bi]
                                           for k in range(batches))))
         return {"batches": batches, "buckets": buckets}
+
+
+def plant(patch, change):
+    """Break the timed call underneath, through ``patch`` (a ``setattr``,
+    such as pytest's ``monkeypatch.setattr``): ``BatchSolver.solve`` returns
+    ``change(x, x0)`` as its coordinates, its iterations and its converged,
+    satisfied and degenerate flags as solved."""
+    from ezpz_tpu_torch import batch
+
+    real = batch.BatchSolver.solve
+
+    def broken(self, x0, pars=None, *a, **k):
+        out = real(self, x0, pars, *a, **k)
+        return batch.BatchResult(change(out.x, x0), out.iterations, out.converged,
+                                 out.satisfied, out.degenerate)
+
+    patch(batch.BatchSolver, "solve", broken)

@@ -5,7 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from rehearsal import CELLS, cell as rehearsal_cell, rehearse
+from rehearsal import (CELLS, FAULTS, cell as rehearsal_cell, harness, loop, overrides,
+                       rehearse)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -65,10 +66,12 @@ def test_check_through_the_named_reference_is_the_accepted_one(cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
-    """The reference in float32 in the program's place fails the check."""
+    """The reference in float32 in the program's place fails the check, at
+    the configuration's published size, where the limits were read, with
+    the rehearsal's traffic."""
     from portbench import check
 
-    c = rehearsal_cell(cell)
+    c = harness.Cell(cell, "cpu", {"traffic": overrides(cell).get("traffic", {})})
     rng = np.random.default_rng(4)
     c.loop.prepare(2**35)
     c.loop.run(count=2, keep=c.loop.keep_for(rng, 2))
@@ -81,7 +84,20 @@ def test_control_is_not_correct(cell):
     assert shown["resid"]["value"] > 3 * shown["resid"]["limit"]
 
 
-def _plant(monkeypatch, change):
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("cell", CELLS)
+def test_run_with_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
+    """The whole run, past the look for a card, with the timed path broken
+    underneath by the cell's own loop (its ``plant``): ``correct`` comes
+    out false."""
+    loop(cell).plant(monkeypatch.setattr, FAULTS[fault])
+    result, lines = rehearse(cell)
+    assert result["correct"] is False, lines
+
+
+def _plant_in_batch_solver(monkeypatch, change):
+    """How the fault test broke every cell before each loop planted its own
+    faults: ``BatchSolver.solve`` wrapped, the witness for ``loops/fleet``."""
     from ezpz_tpu_torch import batch
 
     real = batch.BatchSolver.solve
@@ -94,19 +110,17 @@ def _plant(monkeypatch, change):
     monkeypatch.setattr(batch.BatchSolver, "solve", broken)
 
 
-FAULTS = {
-    # A step that returns its state unchanged: the guesses come back.
-    "unchanged": lambda x, x0: torch.as_tensor(x0, dtype=x.dtype).clone(),
-    # An answer altered where it is produced.
-    "altered": lambda x, x0: x + 1e-6,
-}
-
-
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", CELLS)
-def test_run_with_a_broken_timed_path_is_not_correct(monkeypatch, cell, fault):
-    """The whole run, past the look for a card, with the timed path broken
-    underneath: ``correct`` comes out false."""
-    _plant(monkeypatch, FAULTS[fault])
-    result, lines = rehearse(cell)
-    assert result["correct"] is False, lines
+@pytest.mark.parametrize("cell", [c for c in CELLS if loop(c).__name__ == "portbench.loops.fleet"])
+def test_fleet_plant_breaks_what_the_test_broke_before(monkeypatch, cell, fault):
+    """``loops/fleet.plant`` breaks the timed path as the fault test's own
+    wrapper did: the same check numbers at the same seed (traced runs, a
+    fixed count of batches)."""
+    with monkeypatch.context() as m:
+        _plant_in_batch_solver(m, FAULTS[fault])
+        before, _ = rehearse(cell, traced=True)
+    with monkeypatch.context() as m:
+        loop(cell).plant(m.setattr, FAULTS[fault])
+        after, _ = rehearse(cell, traced=True)
+    assert before["correct"] is False
+    assert after["checks"] == before["checks"]

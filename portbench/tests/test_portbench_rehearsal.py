@@ -79,7 +79,11 @@ def test_benchmark_json_names_every_file_it_needs():
         assert (root / "reference" / f"{cfg['reference']}.py").is_file()
     for w in bench["workloads"]:
         traffic = root / "traffic" / f"{w['traffic']}.json"
-        assert (root / "loops" / f"{json.loads(traffic.read_text())['loop']}.py").is_file()
+        loop = json.loads(traffic.read_text())["loop"]
+        assert (root / "loops" / f"{loop}.py").is_file()
+        # The loop breaks its own timed call for the fault tests.
+        assert callable(getattr(harness.module("loops", loop), "plant", None)), (
+            f"loops/{loop}.py defines no plant(patch, change)")
         assert (root / "limits" / f"{w['name']}.json").is_file()
     for m in bench["per_layer"]:
         assert callable(harness.reader(m["name"]).read)
