@@ -9,7 +9,7 @@ Phases (any failure exits non-zero before the result line):
    no GPU, no run;
 2. build the kernels (``csrc/fused_fleet.cu``, ``csrc/coarse_fleet.cu``,
    ``csrc/banded_spd.cu``, ``csrc/banded_dynamic.cu``,
-   ``csrc/banded_lanes.cu``) with nvcc, one compiler per source, all
+   ``csrc/banded_lanes.cu``, ``csrc/lm_jacobian.cu``) with nvcc, one compiler per source, all
    started together, and print
    each instantiation's registers, stack frame and spills, and the fleet
    kernels' resident threads per SM;
@@ -41,7 +41,8 @@ Phases (any failure exits non-zero before the result line):
    seeded perturbations (sigma 1e-3) with per-sketch parameters through
    ``BatchSolver(precision="mixed", pallas_fused=True,
    batch_params=True).solve``: counts from zero, the bench gate, the
-   route's banded kernel launched and no other kernel; the dense witness
+   route's banded kernel launched, the Jacobian kernel once an LM trip
+   (``lm.band_steps``) and no fleet kernel; the dense witness
    (``solve_lm_mixed(..., spd=spd_solve)``) on the same lanes: converged,
    satisfied and degenerate equal lane for lane, iterations equal on at
    least 99.9% of lanes, x within 1e-6 where both converged; both solves
@@ -51,6 +52,15 @@ Phases (any failure exits non-zero before the result line):
    (``phase8_kernel``: bit-equal to the plain version in f32 and f64, the
    dense library on the same matrices, the bound; at the chain the warp
    kernel forced beside it);
+3j. the LM step's Jacobian kernel (``ops/lm_jacobian.py``, one launch a
+   ``normal_equations`` call on the card) against its plain version, to
+   the bit (rows, product columns, degenerate flags), in float32 and
+   float64: each of the 23 kinds at LMJ_KINDS_B lanes (every fourth
+   degenerate) and ``rect_chain(64)`` at the benchmark's LMJ_B lanes with
+   per-lane parameters, each with and without an rhs; then the kernel
+   alone at the chain (CUDA events around 10 launches, median of 5, fresh
+   x) beside its byte bound (``lm_jacobian_bytes``) and the plain
+   version's time (its launches on the main path are phase 3d's);
 4. the fused main path of ``bench.py`` through the port: the
    ``massive_parallel_system`` fixture at 8192 copies (9.8 M one-variable
    and 4.9 M two-variable sketches) via ``Problem.from_str`` ->
@@ -305,6 +315,7 @@ def ptxas_summary(log_path):
                       r"I([fd])Li(\d+)E",
                       line)
         g = re.search(r"Compiling entry function '.*?banded_spd_general_kernelI([fd])E", line)
+        j = re.search(r"Compiling entry function '.*?lm_jacobian_kernelI([fd])E", line)
         if m:
             shape = f"<{m.group(3)},{m.group(4)}>" if m.group(3) else ""
             name = f"{m.group(1)}_{m.group(2)}_kernel{shape}"
@@ -313,6 +324,8 @@ def ptxas_summary(log_path):
                     f"{'float' if b.group(2) == 'f' else 'double'},{b.group(3)}>")
         elif g:
             name = f"banded_spd_general_kernel<{'float' if g.group(1) == 'f' else 'double'}>"
+        elif j:
+            name = f"lm_jacobian_kernel<{'float' if j.group(1) == 'f' else 'double'}>"
         elif name and "stack frame" in line:
             frame = line.strip()
         elif name and "registers" in line:
@@ -611,22 +624,28 @@ def phase3d(dev, card):
     at BAND_B seeded perturbations (sigma 1e-3) with per-sketch parameters
     through ``BatchSolver(precision="mixed", pallas_fused=True,
     batch_params=True)``: counts from zero, the bench gate, the route's
-    banded kernel launched and no other kernel; the dense witness on the
+    banded kernel launched, the Jacobian kernel (``ops/lm_jacobian.py``)
+    once an LM trip (one ``normal_equations`` call, counted by
+    ``lm.band_steps``) and no fleet kernel; the dense witness on the
     same lanes (flags equal, iterations on ITER_EQUAL_MIN of the lanes, x
     within X_TOL); both timed (CUDA events, median of REPS, fresh inputs)
     with their split between assembly and factor; the kernel alone on the
-    run's first band (``phase8_kernel``). Returns the launches by route."""
+    run's first band (``phase8_kernel``). Returns the main-path runs'
+    launches by banded route, and under ``"lm_jacobian"`` the Jacobian
+    kernel's."""
     import numpy as np
     import torch
 
+    from ezpz_tpu_torch import tracing
     from ezpz_tpu_torch.batch import BatchSolver
     from ezpz_tpu_torch.config import Config
     from ezpz_tpu_torch.models.compiled import compile_system
-    from ezpz_tpu_torch.ops import banded, banded_spd, coarse_fleet, fused_fleet
+    from ezpz_tpu_torch.ops import banded, banded_spd, coarse_fleet, fused_fleet, lm_jacobian
     from ezpz_tpu_torch.ops.linalg import spd_solve
 
     t_start = time.perf_counter()
     launches = dict.fromkeys(banded_spd.LAUNCHES, 0)
+    launches["lm_jacobian"] = 0
     for seed, (label, n_want, bw_want, route_want) in enumerate(BAND_TIER):
         t_topology = time.perf_counter()
         cons, x0 = band_topology(label)
@@ -653,23 +672,30 @@ def phase3d(dev, card):
 
         # The main-path run: counts from zero.
         banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
-        fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = 0
+        fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = lm_jacobian.LAUNCHES = 0
+        steps = tracing.counts().get("lm.band_steps", 0)
         torch.cuda.reset_peak_memory_stats()
         with first_band(banded) as captured:
             out = solver.solve(xs[0], pars)
             torch.cuda.synchronize()
         routes = dict(banded_spd.LAUNCHES)
         fleet = fused_fleet.LAUNCHES + coarse_fleet.LAUNCHES
+        jacobian, steps = lm_jacobian.LAUNCHES, tracing.counts()["lm.band_steps"] - steps
         peak = torch.cuda.max_memory_allocated()
         gate(f"phase3d {label} band tier x{BAND_B}", [(solver, xs[0], pars)], [out])
-        print(f"phase3d {label}: banded launches by route {routes}, fleet kernel launches "
-              f"{fleet}, iterations {int(out.iterations.min())}-{int(out.iterations.max())}, "
+        print(f"phase3d {label}: banded launches by route {routes}, Jacobian kernel "
+              f"launches {jacobian} over {steps} LM trips, fleet kernel launches {fleet}, "
+              f"iterations {int(out.iterations.min())}-{int(out.iterations.max())}, "
               f"peak device memory {peak!r} bytes", flush=True)
         others = sum(v for k, v in routes.items() if k != route_want)
         if routes[route_want] == 0 or others or fleet:
             raise SystemExit(f"chip_smoke: phase3d {label} did not run on the banded "
                              f"kernel's {route_want} route alone")
+        if steps == 0 or jacobian != steps:
+            raise SystemExit(f"chip_smoke: phase3d {label} launched the Jacobian kernel "
+                             f"{jacobian} times in {steps} LM trips, not once a trip")
         launches[route_want] += routes[route_want]
+        launches["lm_jacobian"] += jacobian
 
         # The dense witness on the same lanes.
         torch.cuda.reset_peak_memory_stats()
@@ -751,6 +777,144 @@ def gate(label, solvers, outs):
           f"lm_iterations_max={iters}", flush=True)
     if not (conv and sat and rmax <= 1e-8):
         raise SystemExit(f"chip_smoke: {label} failed the converged/satisfied/1e-8 gate")
+
+
+LMJ_B = 24576
+LMJ_KINDS_B = 4096
+LMJ_INNER = 10
+
+
+def lm_jacobian_bytes(t, B, n_vars):
+    """The least bytes of one ``lm_jacobian`` launch of ``B`` lanes of
+    ``n_vars`` variables on the tables ``t``: each lane's x and parameters
+    read once, its rows read (the rhs) or written once, its product
+    columns (with their zero column) written once, in the tables' dtype,
+    and its flags (int32); the instance table (int32) and weights once."""
+    size = t.weights.element_size()
+    n_par = sum(p.numel() for p in t.par)
+    per_lane = size * (n_vars + n_par + t.n_rows + t.n_jj + 1 + t.n_jr + 1) + 4 * t.n_deg
+    return B * per_lane + t.inst.shape[0] * (4 * t.inst.shape[1] + size)
+
+
+def phase3j(dev, card):
+    """The LM step's Jacobian kernel (``ops/lm_jacobian.py``) on the card:
+    against its plain version, to the bit (rows, product columns, flags),
+    in float32 and float64, on each of the 23 kinds
+    (``fixtures.every_kind``, 64 instances over 48 variables, LMJ_KINDS_B
+    lanes, every fourth lane degenerate) and on ``rect_chain(64)`` at the
+    benchmark's LMJ_B lanes with per-lane parameters, with and without an
+    rhs; then the kernel alone at the chain (CUDA events around LMJ_INNER
+    launches, median of REPS, with and without the rhs, and in float64)
+    beside its byte bound and the plain version's time. Returns the
+    kernel's record without its launches (phase 3d counts those on the
+    main path); ``max_abs_err`` is the largest difference from the plain
+    version over the chain's comparisons."""
+    import numpy as np
+    import torch
+
+    from ezpz_tpu_torch import fixtures
+    from ezpz_tpu_torch.models.compiled import compile_system
+    from ezpz_tpu_torch.ops import lm_jacobian
+    from ezpz_tpu_torch.ops.kernels import KERNELS
+
+    t_start = time.perf_counter()
+    err = 0.0
+
+    def same(got, want, label):
+        # Bit-equal, NaN where the plain version has NaN; returns the
+        # largest |kernel - plain| over the finite values.
+        worst = 0.0
+        for g, w, what in zip(got, want, ("r", "jj", "jr", "deg")):
+            both_nan = torch.isnan(g.double()) & torch.isnan(w.double())
+            equal = g.shape == w.shape and bool(((g == w) | both_nan).all())
+            if not equal:
+                raise SystemExit(f"chip_smoke: phase3j {label}: the kernel's {what} is not "
+                                 f"the plain version's")
+            diff = (g.double() - w.double()).abs().masked_fill(both_nan, 0.0)
+            worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        return worst
+
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.float64):
+        for k, name in enumerate(sorted(KERNELS)):
+            system = fixtures.every_kind(per_kind=64, n_vars=48, seed=k,
+                                         kinds=[name]).astype(dtype)
+            x = rng.uniform(-5.0, 5.0, (LMJ_KINDS_B, system.n_vars))
+            x[::4] = x[::4, :1]
+            x = torch.as_tensor(x, dtype=dtype, device=dev)
+            pars = tuple(torch.as_tensor(
+                b.par * rng.uniform(0.8, 1.25, (LMJ_KINDS_B,) + b.par.shape), dtype=dtype,
+                device=dev) for b in system.blocks)
+            rhs = torch.as_tensor(rng.normal(0.0, 1.0, (LMJ_KINDS_B, system.n_rows)),
+                                  dtype=dtype, device=dev)
+            t = system._jacobian_tables(dev)
+            for p, r in ((None, None), (pars, rhs)):
+                same(lm_jacobian.products(t, x, p, r),
+                     lm_jacobian.products_reference(t, x, p, r), f"{name} {dtype} x{LMJ_KINDS_B}")
+    print(f"phase3j: the 23 kinds x{LMJ_KINDS_B} lanes, float32 and float64, with and without "
+          f"the rhs: bit-equal to the plain version", flush=True)
+
+    cons, x0 = fixtures.rect_chain(64)
+    chain = compile_system(cons, n_vars=len(x0))
+    noise = rng.normal(0.0, 0.05, (REPS + 1, LMJ_B, len(x0)))
+    factors = [rng.uniform(0.8, 1.25, (LMJ_B,) + b.par.shape) for b in chain.blocks]
+    rhs64 = rng.normal(0.0, 1.0, (LMJ_B, chain.n_rows))
+    rec = None
+    for dtype in (torch.float32, torch.float64):
+        system = chain.astype(dtype)
+        t = system._jacobian_tables(dev)
+        xs = [torch.as_tensor(x0 + noise[k], dtype=dtype, device=dev) for k in range(REPS + 1)]
+        pars = tuple(torch.as_tensor(b.par * f, dtype=dtype, device=dev)
+                     for b, f in zip(system.blocks, factors))
+        rhs = torch.as_tensor(rhs64, dtype=dtype, device=dev)
+        plain_ms = {}
+        for label, r in (("without the rhs", None), ("with the rhs", rhs)):
+            got = lm_jacobian.products(t, xs[0], pars, r)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            want = lm_jacobian.products_reference(t, xs[0], pars, r)
+            ev[1].record()
+            torch.cuda.synchronize()
+            plain_ms[label] = ev[0].elapsed_time(ev[1])
+            err = max(err, same(got, want, f"rect_chain(64) {dtype} x{LMJ_B} {label}"))
+            del got, want
+        print(f"phase3j: rect_chain(64) x{LMJ_B} {dtype}, per-lane parameters, with and "
+              f"without the rhs: bit-equal to the plain version (max |kernel - plain| "
+              f"{err!r})", flush=True)
+        # float64: the kernel alone without the rhs (the f64 paths pass none).
+        timing = phase3j_timing(t, xs, pars, rhs if dtype == torch.float32 else None,
+                                plain_ms, system.n_vars, card, dtype)
+        rec = rec or timing
+        del xs, pars, rhs
+        torch.cuda.empty_cache()
+    rec["max_abs_err"] = err
+    print(f"phase3j ok: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return rec
+
+
+def phase3j_timing(t, xs, pars, rhs, plain_ms, n_vars, card, dtype):
+    """The Jacobian kernel alone on ``xs[1:]`` (one rep each): CUDA events
+    around LMJ_INNER launches, median of REPS, without ``rhs`` and, when
+    given, with it. Returns the record of the run without the rhs."""
+    from ezpz_tpu_torch.ops import lm_jacobian
+
+    rec = None
+    for label, r in (("without the rhs", None), ("with the rhs", rhs))[:1 + (rhs is not None)]:
+        # LMJ_INNER launches between the events, so the device does not wait
+        # on the wrapper's host work between them.
+        _wall, ms, walls = timed(around(
+            lambda k: [lm_jacobian.products(t, xs[k + 1], pars, r) for _ in range(LMJ_INNER)]))
+        ms = ms[0] / LMJ_INNER
+        bound_ms = 1e3 * lm_jacobian_bytes(t, LMJ_B, n_vars) / HBM_BYTES_PER_S
+        print(f"phase3j lm_jacobian rect_chain(64) x{LMJ_B} {dtype} {label}: {ms!r} ms a "
+              f"launch (CUDA events around {LMJ_INNER} launches, median of {REPS}, fresh x; "
+              f"host {[round(w * 1e3 / LMJ_INNER, 3) for w in walls]} ms a call), bound "
+              f"{bound_ms!r} ms (bytes), {100 * bound_ms / ms!r}% of it; plain version "
+              f"{plain_ms[label]!r} ms (once); card: {card}", flush=True)
+        if rec is None:
+            rec = dict(ms=ms, plain_ms=plain_ms[label], bound_ms=bound_ms, bound_by="bytes")
+    return rec
 
 
 def timed(fn, marks=1):
@@ -2968,6 +3132,7 @@ def main() -> int:
     phase3b(dev)
     phase3c(dev, card)
     band_tier = phase3d(dev, card)
+    jacobian = phase3j(dev, card)
     fused = phase4(dev, card)
     coarse = phase5(dev, card)
     full, api_us = phase6(dev, card)
@@ -2981,8 +3146,10 @@ def main() -> int:
     # launches with phase 3d's rect_grid(8,8) run's. The lane kernel's:
     # phase 8l's band, the launches of the four main-path runs it takes
     # (phase 3d's rect_chain(64), 8, 8l and 10a). The wide routes (phase
-    # 8w) are records of their own.
+    # 8w) are records of their own. The Jacobian kernel's launches: phase
+    # 3d's two main-path runs, one a LM trip.
     warp = dict(warp, launches=warp["launches"] + band_tier["warp"])
+    jacobian = dict(jacobian, launches=band_tier["lm_jacobian"])
     lanes = dict(lanes, launches=lanes["launches"] + band["launches"] + launches
                  + band_tier["lanes"])
     kernels = []
@@ -2993,7 +3160,8 @@ def main() -> int:
             ("banded_spd_lanes", lanes, "banded_lanes", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_wide", wide, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
             ("banded_spd_dynamic", dynamic, "banded_dynamic", "ezpz_tpu/ops/banded.py:37"),
-            ("banded_spd_general", general, "banded_spd", "ezpz_tpu/ops/banded.py:37")):
+            ("banded_spd_general", general, "banded_spd", "ezpz_tpu/ops/banded.py:37"),
+            ("lm_jacobian", jacobian, "lm_jacobian", None)):
         kernels.append({
             "name": name,
             "route": "cuda",

@@ -139,3 +139,40 @@ def rect_grid(RX: int, RY: int) -> Tuple[List[Constraint], np.ndarray]:
                 cons.append(Constraint.Vertical(DatumLineSegment(P[i][j], P[i][j + 1])))
                 cons.append(Constraint.Distance(P[i][j], P[i][j + 1], 1.0))
     return cons, x0
+
+
+def every_kind(per_kind: int = 3, n_vars: int = 24, seed: int = 0, kinds=None):
+    """A compiled system (float64) holding ``per_kind`` instances of each
+    of the 23 residual kinds (or of ``kinds``, names of
+    ``ops.kernels.KERNELS``), one constraint an instance, over ``n_vars``
+    variables: seeded variable ids (the first instance of a kind of two or
+    more variables names one variable twice), parameters as each kind
+    takes them (a side sign, an interior flag, a sine and cosine pair,
+    else lengths in [0.5, 20]) and weights in [0.5, 2]. Lowering does not
+    build it: it exercises the evaluators, not a sketch."""
+    from .models.compiled import CompiledSystem, KindBlock
+    from .ops.kernels import KERNELS
+
+    rng = np.random.default_rng(seed)
+    blocks, cid, n_rows = [], 0, 0
+    for name in sorted(KERNELS if kinds is None else kinds):
+        spec = KERNELS[name]
+        idx = np.stack([rng.choice(n_vars, spec.nvars, replace=False)
+                        for _ in range(per_kind)]).astype(np.int32)
+        if spec.nvars > 1:
+            idx[0, 1] = idx[0, 0]
+        par = rng.uniform(0.5, 20.0, (per_kind, spec.nparams))
+        if name in ("lines_at_angle", "points_at_angle"):
+            th = rng.uniform(-np.pi, np.pi, per_kind)
+            par = np.stack([np.sin(th), np.cos(th)], axis=1)
+        elif name == "line_tangent_circle":
+            par = np.where(rng.random((per_kind, 1)) < 0.5, -1.0, 1.0)
+        elif name == "circle_tangent_circle":
+            par = np.where(rng.random((per_kind, 1)) < 0.5, 0.0, 1.0)
+        blocks.append(KindBlock(spec=spec, idx=idx, par=par,
+                                weight=rng.uniform(0.5, 2.0, per_kind),
+                                cid=np.arange(cid, cid + per_kind, dtype=np.int32)))
+        cid += per_kind
+        n_rows += per_kind * spec.dim
+    return CompiledSystem(n_vars=n_vars, n_constraints=cid, n_rows=n_rows,
+                          blocks=tuple(blocks))

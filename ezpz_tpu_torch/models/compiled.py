@@ -22,7 +22,8 @@ import torch
 
 from .. import tracing
 from ..constraints import Constraint
-from ..ops.kernels import KERNELS, KernelSpec, jvp
+from ..ops import lm_jacobian
+from ..ops.kernels import KERNELS, KernelSpec
 
 EPSILON = 1e-4  # satisfaction tolerance, ezpz/src/lib.rs:43
 
@@ -119,66 +120,52 @@ class CompiledSystem:
         when ``part_size`` is set, in the lower band (B, n, bw+1) of a band
         route ``band``: ``ops.banded.BandRoute``, by ``band_plan``).
 
-        Jacobian columns come by forward mode per kernel (``torch.func.jvp``
-        with one-hot tangents, one per instance variable). JtJ and Jtr are
-        accumulated from per-instance products in the JAX package's order:
-        block by block, instance by instance (``_assembly``), with fixed
-        gathers and adds, so the sums are deterministic on any device.
+        The weighted Jacobian's per-instance products come from
+        ``ops.lm_jacobian.products``: on the card one kernel launch, on the
+        CPU its plain version (forward mode per kernel, ``torch.func.jvp``
+        with one-hot tangents). JtJ and Jtr are accumulated from those
+        products in the JAX package's order: block by block, instance by
+        instance (``_assembly``), with fixed gathers and adds, so the sums
+        are deterministic on any device.
 
         ``rhs`` optionally substitutes an already-evaluated weighted
-        residual (possibly wider; it is cast to this system's dtype) for the
-        right-hand side: ``jtr = J^T cast(rhs)``. ``x`` is cast likewise, so
-        the call is valid on an f32 twin with f64 inputs."""
+        residual (possibly wider: its first ``n_rows`` columns are taken,
+        cast to this system's dtype) for the right-hand side: ``jtr = J^T
+        cast(rhs)``. ``x`` is cast likewise, so the call is valid on an f32
+        twin with f64 inputs."""
         x = x.to(self.dtype)
         B = x.shape[0]
         dev = x.device
-        parts, jj, jr = [], [], []
+        tables = self._jacobian_tables(dev)
         deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
-        slices = self.block_row_slices()
         with tracing.span("ezpz.lm.jacobian"):
-            for i, b in enumerate(self.blocks):
-                spec = b.spec
-                res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
-                if rhs is None:
-                    wres = [res[d] * w for d in range(spec.dim)]
-                else:
-                    lo, hi = slices[i]
-                    r_b = rhs[:, lo:hi].to(self.dtype).reshape(B, -1, spec.dim)
-                    wres = [r_b[..., d] for d in range(spec.dim)]
-                for ka in wjac:
-                    jr.append(_dot(ka, wres))
-                    jj.extend(_dot(ka, la) for la in wjac)
-                parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
-                if spec.can_degenerate:
-                    cid = to_device(b.cid, dtype=torch.long, device=dev)
-                    deg_acc.index_add_(-1, cid, deg.to(torch.int32))
-        jtj, jtr = self._assemble(jj, jr, B, x, band)
-        if parts:
-            r = torch.cat(parts, dim=-1)
-        else:
-            r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
+            if rhs is not None:
+                rhs = rhs[:, :self.n_rows].to(self.dtype)
+            r, jj, jr, deg = lm_jacobian.products(tables, x, pars, rhs)
+            if tables.n_deg:
+                deg_acc.index_add_(-1, tables.cid, deg)
+        jtj, jtr = self._assemble(jj, jr, band)
         return r, jtj, jtr, deg_acc > 0
+
+    def _jacobian_tables(self, dev) -> lm_jacobian.JacobianTables:
+        """The blocks' tables for ``ops.lm_jacobian`` on ``dev``, copied
+        there once per device (the first stored copy wins)."""
+        cache = self.__dict__.setdefault("_jacobian_tables_by_device", {})
+        tables = cache.get(dev)
+        if tables is None:
+            tables = cache.setdefault(
+                dev, lm_jacobian.jacobian_tables(self.blocks, self.dtype, dev))
+        return tables
 
     def _weighted_jacobian(self, i: int, x: torch.Tensor, pars):
         """Block ``i`` at ``x`` (B, n_vars): ``(res (dim, B, nb), wjac,
         deg (B, nb), w (nb,))``, where ``wjac[a][d]`` (B, nb) is the
-        weighted derivative of row ``d`` by the instance's variable ``a``,
-        by ``torch.func.jvp`` with one one-hot tangent per variable."""
-        b = self.blocks[i]
-        spec = b.spec
-        dev = x.device
-        idx = to_device(b.idx, dtype=torch.long, device=dev)
-        v = x[:, idx]  # (B, nb, nv)
-        vs = tuple(v[..., k] for k in range(spec.nvars))
-        p = self._pars(pars, i, x)
-        ps = [p[..., k] for k in range(spec.nparams)]
-        one, zero = torch.ones_like(vs[0]), torch.zeros_like(vs[0])
-        w = to_device(b.weight, dtype=self.dtype, device=dev)
-        wjac = []
-        for a in range(spec.nvars):
-            tangent = tuple(one if r == a else zero for r in range(spec.nvars))
-            res, dres, deg = jvp(lambda *vv, fn=spec.fn: fn(vv, ps), vs, tangent)
-            wjac.append([dres[d] * w for d in range(spec.dim)])
+        weighted derivative of row ``d`` by the instance's variable ``a``
+        (``lm_jacobian.weighted_jacobian``)."""
+        t = self._jacobian_tables(x.device)
+        w = t.weight[i]
+        res, wjac, deg = lm_jacobian.weighted_jacobian(
+            self.blocks[i].spec, x[:, t.idx[i]], t.par[i] if pars is None else pars[i], w)
         return res, wjac, deg, w
 
     def jacobian_factors(self, x: torch.Tensor, pars=None):
@@ -198,7 +185,7 @@ class CompiledSystem:
             spec = b.spec
             res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
             wres = [res[d] * w for d in range(spec.dim)]
-            jr.extend(_dot(ka, wres) for ka in wjac)
+            jr.extend(lm_jacobian.dot(ka, wres) for ka in wjac)
             wjacs.append(torch.stack([torch.stack(ka, dim=-1) for ka in wjac], dim=-1))
             parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
             if spec.can_degenerate:
@@ -208,7 +195,8 @@ class CompiledSystem:
             r = torch.cat(parts, dim=-1)
         else:
             r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
-        return r, self._plan_sum(self._assembly[1], jr, B, x), wjacs, deg_acc > 0
+        jr.append(x.new_zeros((B, 1)))
+        return r, self._plan_sum(self._assembly[1], torch.cat(jr, dim=1)), wjacs, deg_acc > 0
 
     def jtj_matvec(self, wjacs, v: torch.Tensor) -> torch.Tensor:
         """``JtJ v`` (B, n_vars) for ``v`` (B, n_vars) without forming JtJ:
@@ -228,16 +216,14 @@ class CompiledSystem:
         return gather_sum(vals, entries, gather, size)
 
     def _matvec_tables(self, dev):
-        """The blocks' gather indices and the Jtr plan on ``dev``, copied
-        there once per device: ``jtj_matvec`` runs once per CG trip."""
+        """The blocks' gather indices (``_jacobian_tables``') and the Jtr
+        plan on ``dev``, copied there once per device: ``jtj_matvec`` runs
+        once per CG trip."""
         cache = self.__dict__.setdefault("_matvec_tables_by_device", {})
         if dev not in cache:
             entries, gather, size = self._assembly[1]
-            cache[dev] = (
-                tuple(to_device(b.idx, dtype=torch.long, device=dev)
-                      for b in self.blocks),
-                to_device(entries, device=dev),
-                to_device(gather, device=dev), size)
+            cache[dev] = (self._jacobian_tables(dev).idx, to_device(entries, device=dev),
+                          to_device(gather, device=dev), size)
         return cache[dev]
 
     def jacobian_dense(self, x: torch.Tensor, pars=None) -> torch.Tensor:
@@ -261,22 +247,24 @@ class CompiledSystem:
                 J[:, rows, idx[:, a:a + 1]] += torch.stack(col, dim=-1)
         return J
 
-    def _assemble(self, jj, jr, B, like, band=None):
+    def _assemble(self, jj, jr, band=None):
         """Sum per-instance products into JtJ (B, n, n), or its diagonal
         blocks (B, n / s, s, s) for ``part_size`` s, or the lower band (B,
-        n, bw+1) of the route ``band``, and Jtr (B, n). ``jj`` holds, per
-        block, one (B, nb) tensor for each (k, l) pair of instance
-        variables; ``jr`` one for each k. A band assembly counts one
-        ``lm.band_steps`` (``tracing``)."""
+        n, bw+1) of the route ``band``, and Jtr (B, n). ``jj`` (B, n_jj + 1)
+        holds every block's (k, l) products of instance variables, ``jr``
+        (B, n_jr + 1) its k products, in ``_assembly``'s numbering, each
+        ending in a zero column (``ops.lm_jacobian.products``). A band
+        assembly counts one ``lm.band_steps`` (``tracing``)."""
         n = self.n_vars
+        B = jj.shape[0]
         with tracing.span("ezpz.lm.assemble"):
             if band is not None:
-                entries, gather, _fwd, _inv = band.tables(like.device)
-                jtj = self._plan_sum((entries, gather, n * (band.bw + 1)), jj, B, like)
+                entries, gather, _fwd, _inv = band.tables(jj.device)
+                jtj = self._plan_sum((entries, gather, n * (band.bw + 1)), jj)
                 tracing.count("lm.band_steps")
             else:
-                jtj = self._plan_sum(self._assembly[0], jj, B, like)
-            jtr = self._plan_sum(self._assembly[1], jr, B, like)
+                jtj = self._plan_sum(self._assembly[0], jj)
+            jtr = self._plan_sum(self._assembly[1], jr)
         if band is not None:
             return jtj.reshape(B, n, band.bw + 1), jtr
         if self.part_size:
@@ -284,17 +272,15 @@ class CompiledSystem:
             return jtj.reshape(B, n // s, s, s), jtr
         return jtj.reshape(B, n, n), jtr
 
-    def _plan_sum(self, plan, vals, B, like):
+    def _plan_sum(self, plan, cols):
         """One of ``_assembly``'s scatter-adds (or ``band_plan``'s) as fixed
-        gathers: ``vals`` holds (B, ...) tensors whose concatenated columns
-        are in the plan's numbering ([block, (k[, l]), instance]); tables
-        already on the device are not copied again."""
+        gathers: ``cols`` (B, n_in + 1) holds the contributions in the
+        plan's numbering ([block, (k[, l]), instance]) and ends in the zero
+        column; tables already on the device are not copied again."""
         entries, gather, size = plan
-        dev = like.device
-        cols = (torch.cat(vals, dim=1) if vals
-                else torch.zeros((B, 0), dtype=self.dtype, device=dev))
-        return gather_sum(cols, to_device(entries, device=dev),
-                          to_device(gather, device=dev), size)
+        dev = cols.device
+        return gather_sum_padded(cols, to_device(entries, device=dev),
+                                 to_device(gather, device=dev), size)
 
     @cached_property
     def _assembly(self):
@@ -302,7 +288,9 @@ class CompiledSystem:
         or its flattened diagonal blocks) and Jtr, the entries that receive
         contributions, and per entry the contribution columns to add, in the
         JAX package's scatter order (block, instance, then k, l), padded
-        with the zero column."""
+        with the zero column. The columns are where ``ops.lm_jacobian``
+        writes each product (its ``instance_table`` and
+        ``product_columns``)."""
         n = self.n_vars
         s = self.part_size or max(n, 1)
 
@@ -310,21 +298,20 @@ class CompiledSystem:
             return (i // s) * s * s + (i % s) * s + j % s
 
         jj_lists, jr_lists = {}, {}
-        off_jj = off_jr = 0
+        inst, n_jj, n_jr, _n_deg = lm_jacobian.instance_table(self.blocks)
+        lo = 0
         for b in self.blocks:
             nb, nv = b.idx.shape
-            for inst in range(nb):
-                ids = [int(j) for j in b.idx[inst]]
+            jj_cols, jr_cols = lm_jacobian.product_columns(inst[lo:lo + nb], nv)
+            lo += nb
+            for ids, jj_i, jr_i in zip(b.idx.tolist(), jj_cols.tolist(), jr_cols.tolist()):
                 for k in range(nv):
-                    jr_lists.setdefault(ids[k], []).append(off_jr + k * nb + inst)
+                    jr_lists.setdefault(ids[k], []).append(jr_i[k])
                     for l in range(nv):
-                        jj_lists.setdefault(jj_key(ids[k], ids[l]), []).append(
-                            off_jj + (k * nv + l) * nb + inst)
-            off_jj += nb * nv * nv
-            off_jr += nb * nv
+                        jj_lists.setdefault(jj_key(ids[k], ids[l]), []).append(jj_i[k][l])
         plan = []
-        for lists, zero_col, size in ((jj_lists, off_jj, (n // s) * s * s),
-                                      (jr_lists, off_jr, n)):
+        for lists, zero_col, size in ((jj_lists, n_jj, (n // s) * s * s),
+                                      (jr_lists, n_jr, n)):
             entries = sorted(lists)
             width = max((len(v) for v in lists.values()), default=0)
             gather = np.full((len(entries), width), zero_col, dtype=np.int64)
@@ -441,22 +428,21 @@ def gather_sum(vals: torch.Tensor, entries: torch.Tensor, gather: torch.Tensor,
     ``out[:, entries[e]]`` (B, size) is the sum of ``vals[:, gather[e, c]]``
     (B, n_in) over c in order, a column index of ``n_in`` standing for zero
     (it pads the shorter lists); other outputs are zero."""
-    out = torch.zeros((vals.shape[0], size), dtype=vals.dtype, device=vals.device)
+    return gather_sum_padded(torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1),
+                             entries, gather, size)
+
+
+def gather_sum_padded(cols: torch.Tensor, entries: torch.Tensor, gather: torch.Tensor,
+                      size: int) -> torch.Tensor:
+    """``gather_sum`` of ``cols`` (B, n_in + 1) that already end in the
+    zero column ``n_in``."""
+    out = torch.zeros((cols.shape[0], size), dtype=cols.dtype, device=cols.device)
     if len(entries):
-        cols = torch.cat([vals, torch.zeros_like(vals[:, :1])], dim=1)
         acc = cols[:, gather[:, 0]]
         for c in range(1, gather.shape[1]):
             acc = acc + cols[:, gather[:, c]]
         out[:, entries] = acc
     return out
-
-
-def _dot(a, b):
-    """``a[0]*b[0] + a[1]*b[1] + ...`` over lists of tensors, in order."""
-    acc = a[0] * b[0]
-    for u, v in zip(a[1:], b[1:]):
-        acc = acc + u * v
-    return acc
 
 
 def compile_system(

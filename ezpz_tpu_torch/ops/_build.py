@@ -27,7 +27,7 @@ from .. import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("fused_fleet.cu", "coarse_fleet.cu", "banded_spd.cu", "banded_dynamic.cu",
-           "banded_lanes.cu")
+           "banded_lanes.cu", "lm_jacobian.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ezpz_tpu_torch"
 
 # IEEE division and sqrt and no FMA contraction keep the kernels' f32
@@ -340,6 +340,15 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_banded_spd_general.argtypes = [i, p, p, p, p,  # f64, band, rhs, factor, x
                                             p, p,           # sums, fail
                                             i, i, i, i, p]  # B, n, bw, m, stream
+    lib.ezpz_lm_jacobian.restype = i
+    lib.ezpz_lm_jacobian.argtypes = [i, p, p, i,                 # f64, inst, w, n_inst
+                                     p, i, p, i,                 # x, n_vars, rhs, n_rows
+                                     ctypes.POINTER(p),          # host parameter pointers
+                                     ctypes.POINTER(ctypes.c_longlong), i,  # their lane strides, n
+                                     p, p, i, p, i, p, i,        # r, jj, n_jj, jr, n_jr, deg, n_deg
+                                     i, p]                       # B, stream
+    lib.ezpz_lm_jacobian_layout.restype = None
+    lib.ezpz_lm_jacobian_layout.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.ezpz_banded_capacity.restype = i
     lib.ezpz_banded_capacity.argtypes = [i]
     lib.ezpz_banded_warps.restype = i

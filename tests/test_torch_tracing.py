@@ -29,10 +29,13 @@ from ezpz_tpu_torch.ops.linalg import spd_solve
 
 # Host-to-device copies of one warm rect_chain(64) BatchSolver solve
 # (mixed, the band tier; every lane at 3 LM steps): 28 outside the trips
-# and 20 a trip. The band tier's JtJ plan lives on the device
+# and 11 a trip. The band tier's JtJ plan lives on the device
 # (``ops.banded.BandRoute``), so a trip no longer copies JtJ's entries and
-# gather tables (94 = 28 + 22 a trip while JtJ was assembled dense).
-H2D_CHAIN64 = 88
+# gather tables (94 = 28 + 22 a trip while JtJ was assembled dense), and
+# the Jacobian's tables live there too (``ops.lm_jacobian``: 88 = 28 + 20
+# a trip while each Jacobian pass copied its indices, weights and
+# constraint ids).
+H2D_CHAIN64 = 61
 SPANS = ("ezpz.batch.solve", "ezpz.lm.trip", "ezpz.lm.read", "ezpz.lm.jacobian",
          "ezpz.lm.assemble", "ezpz.lm.damped_solve", "ezpz.lm.eval")
 # The span each span opens in (``None``: outside every ``ezpz.*`` span).
@@ -125,9 +128,9 @@ def test_h2d_copies_of_a_chain64_batch():
     n, res = _copies(lambda: solver.solve(x, pars))
     assert (res.iterations == 3).all() and bool(res.converged.all())
     assert n == H2D_CHAIN64
-    # The band plan's entry and gather tables, once (the identity
-    # ordering: no permutation tables).
-    assert first == n + 2
+    # The band plan's entry and gather tables and the Jacobian's four
+    # tables, once (the identity ordering: no permutation tables).
+    assert first == n + 2 + 4
     assert tracing.counts()["lm.band_steps"] - steps == 3
 
 
