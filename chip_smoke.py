@@ -847,7 +847,7 @@ def phase3j(dev, card):
                 device=dev) for b in system.blocks)
             rhs = torch.as_tensor(rng.normal(0.0, 1.0, (LMJ_KINDS_B, system.n_rows)),
                                   dtype=dtype, device=dev)
-            t = system._jacobian_tables(dev)
+            t = system.tables(dev)
             for p, r in ((None, None), (pars, rhs)):
                 same(lm_jacobian.products(t, x, p, r),
                      lm_jacobian.products_reference(t, x, p, r), f"{name} {dtype} x{LMJ_KINDS_B}")
@@ -862,7 +862,7 @@ def phase3j(dev, card):
     rec = None
     for dtype in (torch.float32, torch.float64):
         system = chain.astype(dtype)
-        t = system._jacobian_tables(dev)
+        t = system.tables(dev)
         xs = [torch.as_tensor(x0 + noise[k], dtype=dtype, device=dev) for k in range(REPS + 1)]
         pars = tuple(torch.as_tensor(b.par * f, dtype=dtype, device=dev)
                      for b, f in zip(system.blocks, factors))

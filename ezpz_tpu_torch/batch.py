@@ -45,9 +45,10 @@ import torch
 from . import tracing
 from .config import Config
 from .dof import participation_device, underconstrained_from_participation
-from .models.compiled import CompiledSystem, to_device
+from .models.compiled import CompiledSystem
 from .ops.banded import BandRoute, plan_band
 from .ops.coarse_fleet import coarse_fleet_solve
+from .ops.device_cache import to_device
 from .ops.fleet_plan import kernel_admits, plan_fleet
 from .ops.fused_fleet import fused_fleet_solve
 from .ops.linalg import UNROLL_MAX_N, spd_solve

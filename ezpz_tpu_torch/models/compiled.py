@@ -13,7 +13,7 @@ vector without the dense (n, n) JtJ.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from functools import cached_property
 from typing import Optional, Sequence, Tuple
 
@@ -23,21 +23,12 @@ import torch
 from .. import tracing
 from ..constraints import Constraint
 from ..ops import lm_jacobian
+from ..ops.device_cache import copies, on_device, to_device
 from ..ops.kernels import KERNELS, KernelSpec
 
 EPSILON = 1e-4  # satisfaction tolerance, ezpz/src/lib.rs:43
 
 _NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
-
-
-def to_device(a, dtype=None, device=None) -> torch.Tensor:
-    """``torch.as_tensor(a, dtype, device)``, counted as one host-to-device
-    copy (``tracing``'s ``h2d.copies``) unless ``a`` is already a tensor.
-    On the card such a copy from host memory waits for the stream to
-    drain. Counted on every device, the CPU included."""
-    if not isinstance(a, torch.Tensor):
-        tracing.count("h2d.copies")
-    return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 @dataclass(frozen=True)
@@ -49,6 +40,20 @@ class KindBlock:
     par: np.ndarray  # (n, nparams) float
     weight: np.ndarray  # (n,) float — constraint weights
     cid: np.ndarray  # (n,) int32 — originating constraint index
+
+
+@dataclass(frozen=True)
+class SystemTables(lm_jacobian.JacobianTables):
+    """One system's tables on one device (``CompiledSystem.tables``): what
+    ``ops.lm_jacobian.products`` reads, and what every other evaluation reads."""
+
+    inst_cid: torch.Tensor  # (n_inst,) long: each instance's constraint
+    row_weight: torch.Tensor  # (n_rows,) in the system's dtype: each residual row's weight
+    row_cid: torch.Tensor  # (n_rows,) long: each residual row's constraint
+    # ``_assembly``'s JtJ and Jtr plans on the device, copied at first use:
+    # a system that only evaluates residuals never builds them.
+    plans: Tuple[dict, dict] = field(default_factory=lambda: ({}, {}), compare=False,
+                                     repr=False)
 
 
 @dataclass(frozen=True)
@@ -76,11 +81,30 @@ class CompiledSystem:
     dtype: torch.dtype = torch.float64
     part_size: int = 0
 
-    def _pars(self, pars, i, like):
-        if pars is None:
-            return to_device(self.blocks[i].par, dtype=like.dtype,
-                                   device=like.device)
-        return pars[i]
+    def tables(self, dev) -> SystemTables:
+        """This system's tables on ``dev``, copied there at that device's
+        first call (``ops.device_cache.on_device``)."""
+        return on_device(self.__dict__.setdefault("_tables", {}), dev, self._make_tables)
+
+    def _make_tables(self, dev) -> SystemTables:
+        def per_row(arrays):
+            return np.concatenate([np.repeat(a, b.spec.dim) for a, b in zip(arrays, self.blocks)]
+                                  or [np.zeros(0)])
+
+        cids = [b.cid for b in self.blocks]
+        return SystemTables(
+            **vars(lm_jacobian.jacobian_tables(self.blocks, self.dtype, dev)),
+            inst_cid=to_device(np.concatenate(cids or [np.zeros(0)]), dtype=torch.long,
+                               device=dev),
+            row_weight=to_device(per_row([b.weight for b in self.blocks]), dtype=self.dtype,
+                                 device=dev),
+            row_cid=to_device(per_row(cids), dtype=torch.long, device=dev))
+
+    def _plan(self, k: int, dev):
+        """``_assembly[k]`` (0: JtJ, 1: Jtr) as ``(entries, gather, size)``
+        with its tables on ``dev``, copied there at the first call."""
+        entries, gather, size = self._assembly[k]
+        return (*on_device(self.tables(dev).plans[k], dev, copies((entries, gather))), size)
 
     def residual(self, x: torch.Tensor, pars=None) -> torch.Tensor:
         """Weighted residual ``(..., n_rows)`` (the reference's
@@ -92,26 +116,36 @@ class CompiledSystem:
         """(weighted residual ``(..., n_rows)``, per-constraint degenerate
         flags ``(..., n_constraints)`` bool)."""
         batch = x.shape[:-1]
-        parts = []
-        deg_acc = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
-                              device=x.device)
-        for i, b in enumerate(self.blocks):
-            idx = to_device(b.idx, dtype=torch.long, device=x.device)
-            v = x[..., idx]  # (..., nb, nv)
-            p = self._pars(pars, i, x)  # (..., nb, np)
-            res, deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
-                                 [p[..., k] for k in range(b.spec.nparams)])
-            w = to_device(b.weight, dtype=x.dtype, device=x.device)
-            res = torch.movedim(res, 0, -1) * w[:, None]  # (..., nb, dim)
+        t = self.tables(x.device)
+        parts, degs = [], []
+        for i, (spec, res, deg) in enumerate(self._evaluate(x, pars, t)):
+            res = torch.movedim(res, 0, -1) * t.weight[i].to(x.dtype)[:, None]  # (..., nb, dim)
             parts.append(res.reshape(batch + (-1,)))
-            if b.spec.can_degenerate:
-                cid = to_device(b.cid, dtype=torch.long, device=x.device)
-                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+            if spec.can_degenerate:
+                degs.append(deg.to(torch.int32))
         if parts:
             r = torch.cat(parts, dim=-1)
         else:
             r = torch.zeros(batch + (0,), dtype=x.dtype, device=x.device)
-        return r, deg_acc > 0
+        return r, self._count(batch, t.cid, degs) > 0
+
+    def _evaluate(self, x, pars, t: SystemTables):
+        """Each block's ``(spec, unweighted rows (dim, ..., nb), degenerate
+        flags (..., nb))`` at ``x``, its tables ``t`` cast to ``x``'s dtype."""
+        for i, b in enumerate(self.blocks):
+            v = x[..., t.idx[i]]  # (..., nb, nv)
+            p = t.par[i].to(x.dtype) if pars is None else pars[i]  # (..., nb, np)
+            yield (b.spec, *b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
+                                      [p[..., k] for k in range(b.spec.nparams)]))
+
+    def _count(self, batch, cid, flags):
+        """``(*batch, n_constraints)`` int32: per constraint, the sum of the
+        int32 ``flags`` (a list of (*batch, nb), concatenated along ``cid``)."""
+        acc = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
+                          device=cid.device)
+        if flags:
+            acc.index_add_(-1, cid, flags[0] if len(flags) == 1 else torch.cat(flags, dim=-1))
+        return acc
 
     def normal_equations(self, x: torch.Tensor, pars=None,
                          rhs: Optional[torch.Tensor] = None, band=None):
@@ -134,35 +168,21 @@ class CompiledSystem:
         cast(rhs)``. ``x`` is cast likewise, so the call is valid on an f32
         twin with f64 inputs."""
         x = x.to(self.dtype)
-        B = x.shape[0]
-        dev = x.device
-        tables = self._jacobian_tables(dev)
-        deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
+        tables = self.tables(x.device)
         with tracing.span("ezpz.lm.jacobian"):
             if rhs is not None:
                 rhs = rhs[:, :self.n_rows].to(self.dtype)
             r, jj, jr, deg = lm_jacobian.products(tables, x, pars, rhs)
-            if tables.n_deg:
-                deg_acc.index_add_(-1, tables.cid, deg)
+            deg_acc = self._count((x.shape[0],), tables.cid, [deg] if tables.n_deg else [])
         jtj, jtr = self._assemble(jj, jr, band)
         return r, jtj, jtr, deg_acc > 0
-
-    def _jacobian_tables(self, dev) -> lm_jacobian.JacobianTables:
-        """The blocks' tables for ``ops.lm_jacobian`` on ``dev``, copied
-        there once per device (the first stored copy wins)."""
-        cache = self.__dict__.setdefault("_jacobian_tables_by_device", {})
-        tables = cache.get(dev)
-        if tables is None:
-            tables = cache.setdefault(
-                dev, lm_jacobian.jacobian_tables(self.blocks, self.dtype, dev))
-        return tables
 
     def _weighted_jacobian(self, i: int, x: torch.Tensor, pars):
         """Block ``i`` at ``x`` (B, n_vars): ``(res (dim, B, nb), wjac,
         deg (B, nb), w (nb,))``, where ``wjac[a][d]`` (B, nb) is the
         weighted derivative of row ``d`` by the instance's variable ``a``
         (``lm_jacobian.weighted_jacobian``)."""
-        t = self._jacobian_tables(x.device)
+        t = self.tables(x.device)
         w = t.weight[i]
         res, wjac, deg = lm_jacobian.weighted_jacobian(
             self.blocks[i].spec, x[:, t.idx[i]], t.par[i] if pars is None else pars[i], w)
@@ -179,8 +199,7 @@ class CompiledSystem:
         x = x.to(self.dtype)
         B = x.shape[0]
         dev = x.device
-        parts, jr, wjacs = [], [], []
-        deg_acc = torch.zeros((B, self.n_constraints), dtype=torch.int32, device=dev)
+        parts, jr, wjacs, degs = [], [], [], []
         for i, b in enumerate(self.blocks):
             spec = b.spec
             res, wjac, deg, w = self._weighted_jacobian(i, x, pars)
@@ -189,14 +208,14 @@ class CompiledSystem:
             wjacs.append(torch.stack([torch.stack(ka, dim=-1) for ka in wjac], dim=-1))
             parts.append(torch.stack(wres, dim=-1).reshape(B, -1))
             if spec.can_degenerate:
-                cid = to_device(b.cid, dtype=torch.long, device=dev)
-                deg_acc.index_add_(-1, cid, deg.to(torch.int32))
+                degs.append(deg.to(torch.int32))
         if parts:
             r = torch.cat(parts, dim=-1)
         else:
             r = torch.zeros((B, 0), dtype=self.dtype, device=dev)
         jr.append(x.new_zeros((B, 1)))
-        return r, self._plan_sum(self._assembly[1], torch.cat(jr, dim=1)), wjacs, deg_acc > 0
+        jtr = gather_sum_padded(torch.cat(jr, dim=1), *self._plan(1, dev))
+        return r, jtr, wjacs, self._count((B,), self.tables(dev).cid, degs) > 0
 
     def jtj_matvec(self, wjacs, v: torch.Tensor) -> torch.Tensor:
         """``JtJ v`` (B, n_vars) for ``v`` (B, n_vars) without forming JtJ:
@@ -204,27 +223,15 @@ class CompiledSystem:
         (``J^T (J v)``), then sum per variable by the fixed gathers of
         ``jacobian_factors`` (O(nnz), deterministic on any device)."""
         B = v.shape[0]
-        idxs, entries, gather, size = self._matvec_tables(v.device)
         cols = []
-        for idx, wjac in zip(idxs, wjacs):
+        for idx, wjac in zip(self.tables(v.device).idx, wjacs):
             vg = v[:, idx]  # (B, nb, nv)
             t = torch.sum(wjac * vg[:, :, None, :], dim=-1)  # (B, nb, dim)
             back = torch.sum(wjac * t[..., None], dim=-2)  # (B, nb, nv)
             cols.append(back.transpose(1, 2).reshape(B, -1))  # [k, instance]
         vals = (torch.cat(cols, dim=1) if cols
                 else torch.zeros((B, 0), dtype=self.dtype, device=v.device))
-        return gather_sum(vals, entries, gather, size)
-
-    def _matvec_tables(self, dev):
-        """The blocks' gather indices (``_jacobian_tables``') and the Jtr
-        plan on ``dev``, copied there once per device: ``jtj_matvec`` runs
-        once per CG trip."""
-        cache = self.__dict__.setdefault("_matvec_tables_by_device", {})
-        if dev not in cache:
-            entries, gather, size = self._assembly[1]
-            cache[dev] = (self._jacobian_tables(dev).idx, to_device(entries, device=dev),
-                          to_device(gather, device=dev), size)
-        return cache[dev]
+        return gather_sum(vals, *self._plan(1, v.device))
 
     def jacobian_dense(self, x: torch.Tensor, pars=None) -> torch.Tensor:
         """Weighted dense Jacobians ``(B, n_rows, n_vars)`` at ``x`` (B,
@@ -240,7 +247,7 @@ class CompiledSystem:
             _res, wjac, _deg, _w = self._weighted_jacobian(i, x, pars)
             rows = lo + (torch.arange(nb, device=dev)[:, None] * dim
                          + torch.arange(dim, device=dev)[None, :])  # (nb, dim)
-            idx = to_device(b.idx, dtype=torch.long, device=dev)
+            idx = self.tables(dev).idx[i]
             for a, col in enumerate(wjac):
                 # One variable slot at a time: its (row, column) pairs are
                 # distinct, so each update is a plain gather-add-scatter.
@@ -260,27 +267,17 @@ class CompiledSystem:
         with tracing.span("ezpz.lm.assemble"):
             if band is not None:
                 entries, gather, _fwd, _inv = band.tables(jj.device)
-                jtj = self._plan_sum((entries, gather, n * (band.bw + 1)), jj)
+                jtj = gather_sum_padded(jj, entries, gather, n * (band.bw + 1))
                 tracing.count("lm.band_steps")
             else:
-                jtj = self._plan_sum(self._assembly[0], jj)
-            jtr = self._plan_sum(self._assembly[1], jr)
+                jtj = gather_sum_padded(jj, *self._plan(0, jj.device))
+            jtr = gather_sum_padded(jr, *self._plan(1, jr.device))
         if band is not None:
             return jtj.reshape(B, n, band.bw + 1), jtr
         if self.part_size:
             s = self.part_size
             return jtj.reshape(B, n // s, s, s), jtr
         return jtj.reshape(B, n, n), jtr
-
-    def _plan_sum(self, plan, cols):
-        """One of ``_assembly``'s scatter-adds (or ``band_plan``'s) as fixed
-        gathers: ``cols`` (B, n_in + 1) holds the contributions in the
-        plan's numbering ([block, (k[, l]), instance]) and ends in the zero
-        column; tables already on the device are not copied again."""
-        entries, gather, size = plan
-        dev = cols.device
-        return gather_sum_padded(cols, to_device(entries, device=dev),
-                                 to_device(gather, device=dev), size)
 
     @cached_property
     def _assembly(self):
@@ -349,19 +346,10 @@ class CompiledSystem:
         """Per-constraint satisfaction from a fresh evaluation: every
         unweighted residual row below 1e-4 (``ezpz/src/lib.rs:307-327``).
         A NaN row is unsatisfied. Returns (..., n_constraints) bool."""
-        batch = x.shape[:-1]
-        unsat = torch.zeros(batch + (self.n_constraints,), dtype=torch.int32,
-                            device=x.device)
-        for i, b in enumerate(self.blocks):
-            idx = to_device(b.idx, dtype=torch.long, device=x.device)
-            v = x[..., idx]
-            p = self._pars(pars, i, x)
-            res, _deg = b.spec.fn([v[..., k] for k in range(b.spec.nvars)],
-                                  [p[..., k] for k in range(b.spec.nparams)])
-            bad = ~(torch.abs(res) < EPSILON).all(dim=0)  # (..., nb)
-            cid = to_device(b.cid, dtype=torch.long, device=x.device)
-            unsat.index_add_(-1, cid, bad.to(torch.int32))
-        return unsat == 0
+        t = self.tables(x.device)
+        bad = [(~(torch.abs(res) < EPSILON).all(dim=0)).to(torch.int32)  # (..., nb)
+               for _spec, res, _deg in self._evaluate(x, pars, t)]
+        return self._count(x.shape[:-1], t.inst_cid, bad) == 0
 
     def all_weights_positive(self) -> bool:
         return all(float(np.min(b.weight)) > 0.0 for b in self.blocks) if self.blocks else True
@@ -386,20 +374,9 @@ class CompiledSystem:
         """Per-constraint satisfaction from an evaluated weighted residual
         ``(..., n_rows)``: every unweighted row ``|r| / w`` below 1e-4
         (valid when every weight > 0). A NaN row is unsatisfied."""
-        rows_cid = np.concatenate(
-            [np.repeat(b.cid, b.spec.dim) for b in self.blocks]
-        ) if self.blocks else np.zeros((0,), np.int32)
-        rows_w = np.concatenate(
-            [np.repeat(np.asarray(b.weight, np.float64), b.spec.dim)
-             for b in self.blocks]
-        ) if self.blocks else np.zeros((0,))
-        w = to_device(rows_w, dtype=r.dtype, device=r.device)
-        bad = ~(torch.abs(r) / w < EPSILON)
-        unsat = torch.zeros(r.shape[:-1] + (self.n_constraints,),
-                            dtype=torch.int32, device=r.device)
-        unsat.index_add_(-1, to_device(rows_cid, dtype=torch.long, device=r.device),
-                         bad.to(torch.int32))
-        return unsat == 0
+        t = self.tables(r.device)
+        bad = ~(torch.abs(r) / t.row_weight.to(r.dtype) < EPSILON)
+        return self._count(r.shape[:-1], t.row_cid, [bad.to(torch.int32)]) == 0
 
     def satisfaction(self, x: torch.Tensor, r: torch.Tensor, pars=None) -> torch.Tensor:
         """Per-constraint satisfaction of a solved point ``x`` with its

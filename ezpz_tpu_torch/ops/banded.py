@@ -35,8 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import tracing
 from . import banded_spd
+from .device_cache import copies, on_device
 from .fleet_plan import _jtj_pattern, _rcm_order
 
 # Bandwidth ceiling of ``plan_band`` (the JAX package's value), for its own
@@ -172,17 +172,6 @@ def plan_band(system):
     return (None if best_perm is None else np.asarray(best_perm)), best_bw
 
 
-def _on_device(by_device: dict, dev, tables):
-    """``tables`` (numpy arrays or None) as tensors on ``dev``, copied there
-    at that device's first call only (counted in ``tracing``'s
-    ``h2d.copies``)."""
-    if dev not in by_device:
-        by_device[dev] = tuple(None if t is None else torch.as_tensor(t, device=dev)
-                               for t in tables)
-        tracing.count("h2d.copies", sum(t is not None for t in tables))
-    return by_device[dev]
-
-
 def _perm_tables(perm):
     """The ordering ``perm`` and its inverse as index arrays (None, None for
     the identity): ``b[:, fwd]`` into the ordering, ``x[:, inv]`` back."""
@@ -207,18 +196,19 @@ class BandRoute:
     straight into the (B, n, bw+1) band and ``solver.damped_band_solve``
     damps its diagonal column and solves it. The plan depends on the
     topology alone: one route serves a system and its f32 twin, its tables
-    copied to a device once, at that device's first call."""
+    copied to a device at that device's first call
+    (``device_cache.on_device``)."""
 
     def __init__(self, system, perm, bw: int):
         self.n, self.bw = system.n_vars, bw
         entries, gather, _size = system.band_plan(perm, bw)
-        self._tables = (entries, gather) + _perm_tables(perm)
+        self._make = copies((entries, gather) + _perm_tables(perm))
         self._by_device = {}
 
     def tables(self, dev):
         """``(entries, gather, fwd, inv)`` on ``dev``: the band plan's
         tables and the ordering's (None for the identity)."""
-        return _on_device(self._by_device, dev, self._tables)
+        return on_device(self._by_device, dev, self._make)
 
     def solve(self, band, b):
         """``banded_spd_solve`` on a band (B, n, bw+1) in the route's
@@ -235,18 +225,19 @@ def make_banded_spd(n: int, bw: int, perm=None):
     of the permuted matrix is ``A[perm[i], perm[i - bw + d]]``; no permuted
     copy of ``A`` is made), ``banded_spd_solve`` on it and ``b[:, perm]``,
     then x gathered back through the inverse permutation. Its index tensors
-    are copied to a device once, at that device's first call (counted in
-    ``tracing``'s ``h2d.copies``). ``BatchSolver``'s band tier does not
+    are copied to a device at that device's first call
+    (``device_cache.on_device``). ``BatchSolver``'s band tier does not
     call it: it assembles the band itself (``BandRoute``)."""
     p = np.arange(n) if perm is None else np.asarray(perm, dtype=np.int64)
     rows = np.arange(n)[:, None]
     cols = rows - bw + np.arange(bw + 1)[None, :]
-    tables = (p[rows], p[np.clip(cols, 0, max(n - 1, 0))], cols >= 0) + _perm_tables(perm)
+    make = copies((p[rows], p[np.clip(cols, 0, max(n - 1, 0))], cols >= 0)
+                   + _perm_tables(perm))
     by_device = {}
 
     def spd(A, b):
         dev = A.device
-        r_idx, c_idx, inside, fwd, inv = _on_device(by_device, dev, tables)
+        r_idx, c_idx, inside, fwd, inv = on_device(by_device, dev, make)
         band = torch.where(inside, A[:, r_idx, c_idx],
                            torch.zeros((), dtype=A.dtype, device=dev))
         return _permuted_solve(band, b, fwd, inv)

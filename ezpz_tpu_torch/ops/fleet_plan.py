@@ -16,9 +16,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from ..models.compiled import CompiledSystem
+from .device_cache import copies, on_device
 from .kernels import KIND_ID
 
 
@@ -421,14 +421,9 @@ class FleetPlan:
                 k["col_ent"])
 
     def device_tables(self, device):
-        """``big_tables`` as tensors on ``device``, uploaded once per
-        device. Threads that upload at once keep the first stored copy
-        (``setdefault``), so every launch reads the tables the cache holds."""
-        key = str(device)
-        if key not in self._tables:
-            self._tables.setdefault(key, tuple(torch.as_tensor(a).to(device)
-                                               for a in self.big_tables()))
-        return self._tables[key]
+        """``big_tables`` as tensors on ``device``, copied there at that
+        device's first call (``device_cache.on_device``)."""
+        return on_device(self._tables, device, copies(self.big_tables()))
 
 
 def plan_fleet(system: CompiledSystem) -> FleetPlan:

@@ -44,6 +44,7 @@ import torch
 from .. import tracing
 from ..utils import debug
 from . import _build
+from .device_cache import to_device
 from .kernels import KIND_ID, KernelSpec, jvp
 
 # Kernel launches made by ``products`` in this process.
@@ -129,20 +130,17 @@ class JacobianTables:
 
 def jacobian_tables(blocks, dtype: torch.dtype, device) -> JacobianTables:
     """``blocks``' tables on ``device``: four host-to-device copies
-    (counted in ``tracing``'s ``h2d.copies``), made once per system and
-    device by the caller's cache."""
+    (``device_cache.to_device``). ``CompiledSystem.tables`` makes them once
+    per system and device (``device_cache.on_device``)."""
     inst, n_jj, n_jr, n_deg = instance_table(blocks)
-    flat = [np.asarray(b.par).reshape(-1) for b in blocks]
-    host = (inst,
-            np.concatenate([np.asarray(b.weight) for b in blocks]) if blocks else np.zeros(0),
-            np.concatenate(flat) if flat else np.zeros(0),
-            np.concatenate([b.cid for b in blocks if b.spec.can_degenerate]
-                           or [np.zeros(0, np.int64)]))
-    dev_inst = torch.as_tensor(host[0], device=device)
-    weights = torch.as_tensor(host[1], dtype=dtype, device=device)
-    pars = torch.as_tensor(host[2], dtype=dtype, device=device)
-    cid = torch.as_tensor(host[3], dtype=torch.long, device=device)
-    tracing.count("h2d.copies", 4)
+    dev_inst = to_device(inst, device=device)
+    weights = to_device(np.concatenate([np.asarray(b.weight) for b in blocks] or [np.zeros(0)]),
+                        dtype=dtype, device=device)
+    pars = to_device(np.concatenate([np.asarray(b.par).reshape(-1) for b in blocks]
+                                    or [np.zeros(0)]), dtype=dtype, device=device)
+    cid = to_device(np.concatenate([b.cid for b in blocks if b.spec.can_degenerate]
+                                   or [np.zeros(0, np.int64)]),
+                    dtype=torch.long, device=device)
     ids = dev_inst[:, IC_IDS:].long()
     idx, weight, par, rows = [], [], [], []
     lo = p_off = row = 0

@@ -36,8 +36,9 @@ import torch
 
 from . import tracing
 from .config import LM_LAMBDA_DECR, LM_LAMBDA_INCR
-from .models.compiled import CompiledSystem, to_device
+from .models.compiled import CompiledSystem
 from .ops.banded import BandRoute
+from .ops.device_cache import to_device
 from .ops.linalg import spd_solve
 
 # The mixed path's f32 phase: at most this many trips, toward this residual
@@ -130,20 +131,14 @@ def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
     incr = to_device(LM_LAMBDA_INCR, dtype=dtype, device=s.lam.device)
 
     def read(s):
-        rinf = _rows_max_abs(s.r)
-        live = ~s.done & (s.it < limit) & (rinf > rtol)
+        live = ~s.done & (s.it < limit) & (_rows_max_abs(s.r) > rtol)
         with tracing.span("ezpz.lm.read"):
             go = bool(live.any())
-        return rinf, live, go
+        return live, go
 
-    rinf, live, go = read(s)
+    live, go = read(s)
     while go:
         with tracing.span("ezpz.lm.trip"):
-            res_now = (rinf <= rtol) & ~s.done
-            if boundary_parity:
-                res_now = res_now & (s.it < limit)
-            act = ~s.done & ~res_now
-
             if debug_fn is not None:
                 debug_fn(s, live)
             d, fail, deg_j = step_fn(s, live)
@@ -154,23 +149,23 @@ def _lm_while_loop(state: LMState, eval_fn, step_fn, limit, rtol, stol,
             r2_new = torch.sum(r_new * r_new, dim=-1)
             accept = ~fail & (r2_new < s.r2)
 
-            take = act & accept
-            step_conv = act & ~fail & (step_inf <= stol)
-            new = LMState(
+            # One pass masked by ``live``: a lane whose loop condition is
+            # false keeps all of its state. A live lane is not done and its
+            # residual is above tolerance, so only the step check can end it.
+            take = live & accept
+            step_conv = live & ~fail & (step_inf <= stol)
+            s = LMState(
                 x=torch.where(take[:, None], x_new, s.x),
                 r=torch.where(take[:, None], r_new, s.r),
                 r2=torch.where(take, r2_new, s.r2),
-                lam=torch.where(act, torch.where(accept, s.lam * decr, s.lam * incr), s.lam),
-                it=torch.where(act, s.it + 1, s.it),
-                done=s.done | res_now | step_conv,
-                converged=s.converged | res_now | step_conv,
-                iterations=torch.where(res_now | step_conv, s.it, s.iterations),
-                deg=s.deg | ((deg_j | deg_r) & act[:, None]),
+                lam=torch.where(live, torch.where(accept, s.lam * decr, s.lam * incr), s.lam),
+                it=torch.where(live, s.it + 1, s.it),
+                done=s.done | step_conv,
+                converged=s.converged | step_conv,
+                iterations=torch.where(step_conv, s.it, s.iterations),
+                deg=s.deg | ((deg_j | deg_r) & live[:, None]),
             )
-            # Lanes whose loop condition is false keep all of their state.
-            s = LMState(*(torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-                          for a, b in zip(new, s)))
-            rinf, live, go = read(s)
+            live, go = read(s)
     res_conv = _rows_max_abs(s.r) <= rtol
     if boundary_parity:
         res_conv = res_conv & (s.it < limit)

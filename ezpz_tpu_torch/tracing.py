@@ -24,9 +24,10 @@ nothing, at the cost of a flag check. Span names are constant strings,
 
 ``count(name, n)`` adds to a process-wide counter on every device, and
 ``counts()`` snapshots them all. ``h2d.copies`` counts the host-to-device
-copies of the batched LM loop and ``CompiledSystem``
-(``models.compiled.to_device``; the band tier's tables once a device);
-``lm.band_steps`` the band tier's JtJ assemblies, one an LM trip.
+copies of host data (``ops.device_cache.to_device``): a topology's tables
+once a device (``ops.device_cache.on_device``), and the LM loops' scalars
+each solve; ``lm.band_steps`` the band tier's JtJ assemblies, one an LM
+trip.
 ``LOCK`` also guards the kernel wrappers' ``LAUNCHES`` counters
 (``ops._build.count_launches``): one lock for every counter of the port.
 """

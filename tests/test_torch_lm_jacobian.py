@@ -179,17 +179,18 @@ def test_tables_are_made_once_a_device():
     x = torch.zeros((2, system.n_vars), dtype=torch.float32)
     before = tracing.counts().get("h2d.copies", 0)
     system.normal_equations(x)
-    first = system._jacobian_tables(x.device)
+    first = system.tables(x.device)
     system.normal_equations(x)
-    assert system._jacobian_tables(x.device) is first
-    # The tables (4) and, each call, the dense JtJ and Jtr plans' entries
-    # and gathers (4).
-    assert tracing.counts()["h2d.copies"] - before == 4 + 4 + 4
+    assert system.tables(x.device) is first
+    # Once: the tables (the Jacobian's 4, the instances' constraint ids,
+    # the rows' weights and constraint ids) and the dense JtJ and Jtr
+    # plans' entries and gathers (2 + 2).
+    assert tracing.counts()["h2d.copies"] - before == 7 + 2 + 2
     assert first.n_rows == system.n_rows
 
 
 def test_products_refuse_an_unsupported_device():
     system = _system("rect_chain(8)").astype(torch.float32)
-    t = system._jacobian_tables(torch.device("cpu"))
+    t = system.tables(torch.device("cpu"))
     with pytest.raises(ValueError, match="unsupported device"):
         lm_jacobian.products(t, torch.zeros((1, system.n_vars), device="meta"))

@@ -5,10 +5,10 @@
 * Spans: under ``torch.profiler`` a band-tier ``BatchSolver`` solve records
   the seven ``ezpz.*`` spans, each inside the span its layer belongs to,
   one ``ezpz.lm.trip`` a trip.
-* Counters: ``h2d.copies`` a solve depends on the topology and the LM
-  trips, not on the lanes; a warm ``rect_chain(64)`` solve at the
-  benchmark's guesses (three LM steps a lane) makes ``H2D_CHAIN64``, the
-  count the benchmark's ``chain64.fleet`` reads a batch on the card.
+* Counters: a warm solve's ``h2d.copies`` depend on neither the lanes nor
+  the LM trips; a warm ``rect_chain(64)`` solve at the benchmark's guesses
+  (three LM steps a lane) makes ``H2D_CHAIN64``, the count the
+  benchmark's ``chain64.fleet`` reads a batch on the card.
   ``lm.band_steps`` counts one a trip of a band-tier solve and none on the
   dense tier or the fused kernel.
 * ``ops._build.count_launches`` still adds to the wrappers' ``LAUNCHES``,
@@ -28,14 +28,14 @@ from ezpz_tpu_torch.ops import _build, banded_spd, fused_fleet
 from ezpz_tpu_torch.ops.linalg import spd_solve
 
 # Host-to-device copies of one warm rect_chain(64) BatchSolver solve
-# (mixed, the band tier; every lane at 3 LM steps): 28 outside the trips
-# and 11 a trip. The band tier's JtJ plan lives on the device
-# (``ops.banded.BandRoute``), so a trip no longer copies JtJ's entries and
-# gather tables (94 = 28 + 22 a trip while JtJ was assembled dense), and
-# the Jacobian's tables live there too (``ops.lm_jacobian``: 88 = 28 + 20
-# a trip while each Jacobian pass copied its indices, weights and
-# constraint ids).
-H2D_CHAIN64 = 61
+# (mixed, the band tier; every lane at 3 LM steps): each of its two LM
+# loops' lambda factors and tolerances. Every table of the topology is on
+# the device since the first solve (``CompiledSystem.tables``,
+# ``ops.banded.BandRoute``; 61 = 28 + 11 a trip while the residual, the
+# satisfaction and the Jtr plan copied theirs at every call).
+H2D_CHAIN64 = 8
+# Guesses spread this far need more LM steps than the benchmark's.
+SPREAD_MORE_STEPS = 2.0
 SPANS = ("ezpz.batch.solve", "ezpz.lm.trip", "ezpz.lm.read", "ezpz.lm.jacobian",
          "ezpz.lm.assemble", "ezpz.lm.damped_solve", "ezpz.lm.eval")
 # The span each span opens in (``None``: outside every ``ezpz.*`` span).
@@ -51,16 +51,16 @@ PARENTS = {
 }
 
 
-def _chain(R, lanes, seed=0):
+def _chain(R, lanes, seed=0, spread=0.05):
     """A mixed band-tier ``BatchSolver`` on ``rect_chain(R)`` and its
-    inputs: the fixture's guesses moved by N(0, 0.05) on each lane."""
+    inputs: the fixture's guesses moved by N(0, ``spread``) on each lane."""
     cons, x0 = fixtures.rect_chain(R)
     system = compile_system(cons, len(x0))
     solver = BatchSolver(system, Config(), batch_params=True, precision="mixed",
                          device="cpu")
     assert solver.spd is not spd_solve  # the band tier
     rng = np.random.default_rng(seed)
-    x = torch.as_tensor(x0 + rng.normal(0.0, 0.05, (lanes, len(x0))))
+    x = torch.as_tensor(x0 + rng.normal(0.0, spread, (lanes, len(x0))))
     pars = tuple(torch.as_tensor(b.par).expand(lanes, -1, -1).contiguous()
                  for b in system.blocks)
     return solver, x, pars
@@ -114,11 +114,23 @@ def test_h2d_copies_do_not_grow_with_lanes():
     counted = []
     for lanes in (4, 64):
         solver, x, pars = _chain(4, lanes)
-        solver.solve(x, pars)  # the band's index tables, once
+        solver.solve(x, pars)  # the topology's tables, once
         n, res = _copies(lambda: solver.solve(x, pars))
         assert bool(res.converged.all()) and int(res.iterations.max()) == 3
         counted.append(n)
-    assert counted[0] == counted[1] > 0
+    assert counted[0] == counted[1] == H2D_CHAIN64
+
+
+def test_h2d_copies_do_not_grow_with_trips():
+    counted, steps = [], []
+    for spread in (0.05, SPREAD_MORE_STEPS):
+        solver, x, pars = _chain(4, 4, spread=spread)
+        solver.solve(x, pars)  # the topology's tables, once
+        n, res = _copies(lambda: solver.solve(x, pars))
+        counted.append(n)
+        steps.append(int(res.iterations.sum()))
+    assert steps[0] < steps[1]
+    assert counted[0] == counted[1] == H2D_CHAIN64
 
 
 def test_h2d_copies_of_a_chain64_batch():
@@ -128,9 +140,10 @@ def test_h2d_copies_of_a_chain64_batch():
     n, res = _copies(lambda: solver.solve(x, pars))
     assert (res.iterations == 3).all() and bool(res.converged.all())
     assert n == H2D_CHAIN64
-    # The band plan's entry and gather tables and the Jacobian's four
-    # tables, once (the identity ordering: no permutation tables).
-    assert first == n + 2 + 4
+    # Once: the band plan's entry and gather tables (the identity
+    # ordering: no permutation tables), the seven tables of the system and
+    # of its f32 twin, and the twin's Jtr plan (entries and gather).
+    assert first == n + 2 + 2 * 7 + 2
     assert tracing.counts()["lm.band_steps"] - steps == 3
 
 
