@@ -42,16 +42,24 @@ Phases (any failure exits non-zero before the result line):
    ``BatchSolver(precision="mixed", pallas_fused=True,
    batch_params=True).solve``: counts from zero, the bench gate, the
    route's banded kernel launched, the Jacobian kernel once an LM trip
-   (``lm.band_steps``) and no fleet kernel; the dense witness
+   (``lm.band_steps``) and no fleet kernel; the damped solve in one launch
+   a trip on the lane kernel's route (``lm.band_damped``; 3 lane launches
+   a ``rect_chain(64)`` solve, 6 in two calls a trip on the warp route),
+   and the lanes the lane kernel's in-kernel retry re-solved (read in one
+   more solve, outside the counts); the dense witness
    (``solve_lm_mixed(..., spd=spd_solve)``) on the same lanes: converged,
    satisfied and degenerate equal lane for lane, iterations equal on at
    least 99.9% of lanes, x within 1e-6 where both converged; both solves
    timed (CUDA events, median of 5, fresh inputs) with their split between
    assembly (``normal_equations``) and factor, LM trips and banded
-   launches per solve; the kernel alone on the run's first band
-   (``phase8_kernel``: bit-equal to the plain version in f32 and f64, the
-   dense library on the same matrices, the bound; at the chain the warp
-   kernel forced beside it);
+   launches per solve; the kernel alone on the run's first band in the
+   main path's mode, in f32 and f64: at the chain the damped one launch
+   (``damped_kernel``: bit-equal to ``solver._rescued`` over the plain
+   version, with lambda -1, NaN and -2 max|diagonal| on four lanes so that
+   the in-kernel retry runs; timed beside the undamped launch on the band
+   damped beforehand), at the grid the warp kernel (``phase8_kernel``:
+   bit-equal to the plain version); the dense library on the same
+   matrices, the bound;
 3j. the LM step's Jacobian kernel (``ops/lm_jacobian.py``, one launch a
    ``normal_equations`` call on the card) against its plain version, to
    the bit (rows, product columns, degenerate flags), in float32 and
@@ -586,8 +594,8 @@ def band_split(run):
     """One ``run(spd_wrapper)`` with CUDA events around every normal-
     equation assembly (``CompiledSystem.normal_equations``) and every
     factorization (the solve the wrapper is handed: the dense route's
-    ``spd``, the band tier's ``banded_spd_solve``): (ms of the whole
-    run, ms in assembly, ms in the factor, LM trips)."""
+    ``spd``, the band tier's ``banded_spd.banded_spd_cuda``): (ms of the
+    whole run, ms in assembly, ms in the factor, LM trips)."""
     import torch
 
     from ezpz_tpu_torch.models import compiled
@@ -626,13 +634,18 @@ def phase3d(dev, card):
     batch_params=True)``: counts from zero, the bench gate, the route's
     banded kernel launched, the Jacobian kernel (``ops/lm_jacobian.py``)
     once an LM trip (one ``normal_equations`` call, counted by
-    ``lm.band_steps``) and no fleet kernel; the dense witness on the
+    ``lm.band_steps``) and no fleet kernel; on the lane kernel's route
+    one damped launch a trip (``lm.band_damped``), elsewhere two calls a
+    trip; the lanes the in-kernel retry re-solved; the dense witness on the
     same lanes (flags equal, iterations on ITER_EQUAL_MIN of the lanes, x
     within X_TOL); both timed (CUDA events, median of REPS, fresh inputs)
     with their split between assembly and factor; the kernel alone on the
-    run's first band (``phase8_kernel``). Returns the main-path runs'
-    launches by banded route, and under ``"lm_jacobian"`` the Jacobian
-    kernel's."""
+    run's first band in the main path's mode: the damped one launch on the
+    lane route (``damped_kernel``: against ``_rescued`` over the plain
+    version, with the retry made to run), the undamped kernel on the
+    composition's damped band elsewhere (``phase8_kernel``). Returns the
+    main-path runs' launches by banded route, and under ``"lm_jacobian"``
+    the Jacobian kernel's."""
     import numpy as np
     import torch
 
@@ -673,14 +686,16 @@ def phase3d(dev, card):
         # The main-path run: counts from zero.
         banded_spd.LAUNCHES = dict.fromkeys(banded_spd.LAUNCHES, 0)
         fused_fleet.LAUNCHES = coarse_fleet.LAUNCHES = lm_jacobian.LAUNCHES = 0
-        steps = tracing.counts().get("lm.band_steps", 0)
+        counted = tracing.counts()
         torch.cuda.reset_peak_memory_stats()
-        with first_band(banded) as captured:
+        with first_kernel_band(banded_spd) as captured:
             out = solver.solve(xs[0], pars)
             torch.cuda.synchronize()
         routes = dict(banded_spd.LAUNCHES)
         fleet = fused_fleet.LAUNCHES + coarse_fleet.LAUNCHES
-        jacobian, steps = lm_jacobian.LAUNCHES, tracing.counts()["lm.band_steps"] - steps
+        steps, damped = (tracing.counts().get(k, 0) - counted.get(k, 0)
+                         for k in ("lm.band_steps", "lm.band_damped"))
+        jacobian = lm_jacobian.LAUNCHES
         peak = torch.cuda.max_memory_allocated()
         gate(f"phase3d {label} band tier x{BAND_B}", [(solver, xs[0], pars)], [out])
         print(f"phase3d {label}: banded launches by route {routes}, Jacobian kernel "
@@ -694,6 +709,17 @@ def phase3d(dev, card):
         if steps == 0 or jacobian != steps:
             raise SystemExit(f"chip_smoke: phase3d {label} launched the Jacobian kernel "
                              f"{jacobian} times in {steps} LM trips, not once a trip")
+        # The damped solve: one launch a trip on the lane kernel's route,
+        # two calls a trip (raw and floored lambda) on any other.
+        one = route_want == "lanes"
+        calls, resolved = retry_lanes(banded_spd, lambda: solver.solve(xs[0], pars))
+        print(f"phase3d {label}: lane-kernel launches per solve {routes['lanes']}, "
+              f"lm.band_damped {damped}, lanes the in-kernel retry re-solved {resolved} "
+              f"(in {calls} one-launch damped solves of {BAND_B} lanes)", flush=True)
+        if damped != (steps if one else 0) or routes[route_want] != steps * (1 if one else 2):
+            raise SystemExit(f"chip_smoke: phase3d {label} made {routes[route_want]} "
+                             f"{route_want} launches and {damped} one-launch damped solves "
+                             f"in {steps} LM trips")
         launches[route_want] += routes[route_want]
         launches["lm_jacobian"] += jacobian
 
@@ -711,13 +737,13 @@ def phase3d(dev, card):
             around(lambda k: dense_witness(solver, xs[k + 1], pars)))
 
         def band_run(wrap):
-            # The band tier factors through ``ops.banded.banded_spd_solve``.
-            saved = banded.banded_spd_solve
-            banded.banded_spd_solve = wrap(saved)
+            # The band tier factors through ``banded_spd.banded_spd_cuda``.
+            saved = banded_spd.banded_spd_cuda
+            banded_spd.banded_spd_cuda = wrap(saved)
             try:
                 solver.solve(xs[1], pars)
             finally:
-                banded.banded_spd_solve = saved
+                banded_spd.banded_spd_cuda = saved
 
         for name, run, ms, walls in (
                 ("band tier", band_run, band_ms[0], band_walls),
@@ -736,9 +762,11 @@ def phase3d(dev, card):
               f"witness's {dense_ms[0]!r} ms", flush=True)
         del out, dense, xs
         torch.cuda.empty_cache()
-        band, rhs = captured[0]
-        phase8_kernel(band, rhs, card, label=f"phase3d {label}",
-                      forced=("warp",) if route_want == "lanes" else ())
+        band, rhs, lam = captured[0]
+        if one:
+            damped_kernel(band, rhs, lam, card, f"phase3d {label}")
+        else:
+            phase8_kernel(band, rhs, card, label=f"phase3d {label}")
         print(f"phase3d {label} ok: {time.perf_counter() - t_topology:.1f} s", flush=True)
     print(f"phase3d ok: {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches
@@ -2102,6 +2130,141 @@ def phase8_kernel(band, rhs, card, label="phase8", dtypes=None, also=(), forced=
         if rec is None or dtype == torch.float32:
             rec = dict(max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bound,
                        bound_by=bound_by, library_ms=lib_ms, forced=others)
+    return rec
+
+
+@contextlib.contextmanager
+def first_kernel_band(banded_spd):
+    """Within the block, ``banded_spd.banded_spd_cuda`` keeps a copy of its
+    first call's band, right-hand side and ``lam`` (None when the call had
+    none) in the list it yields."""
+    captured = []
+    solve = banded_spd.banded_spd_cuda
+
+    def capture(band, rhs, lam=None):
+        if not captured:
+            captured.append((band.clone(), rhs.clone(), None if lam is None else lam.clone()))
+        return solve(band, rhs, lam=lam)
+
+    banded_spd.banded_spd_cuda = capture
+    try:
+        yield captured
+    finally:
+        banded_spd.banded_spd_cuda = solve
+
+
+def damped_copy(band, lam):
+    """A copy of ``band`` (B, n, bw+1) with ``lam`` (B,) added to its
+    diagonal column."""
+    out = band.clone()
+    out[..., -1] += lam[:, None]
+    return out
+
+
+def retry_lanes(banded_spd, run):
+    """``run()`` with its damped one-launch solves counted: (those calls,
+    the lanes of theirs whose raw-lambda factor failed, which the lane
+    kernel's retry re-solved in float32; each such call's band is damped
+    beforehand and solved once more without ``lam`` to count them)."""
+    import torch
+
+    solve = banded_spd.banded_spd_cuda
+    seen = [0, 0]
+
+    def counted(band, rhs, lam=None):
+        if lam is not None:
+            seen[0] += 1
+            if band.dtype == torch.float32:
+                seen[1] += int(solve(damped_copy(band, lam), rhs)[1].sum())
+        return solve(band, rhs, lam=lam)
+
+    banded_spd.banded_spd_cuda = counted
+    try:
+        run()
+    finally:
+        banded_spd.banded_spd_cuda = solve
+    return tuple(seen)
+
+
+def damped_kernel(band, rhs, lam, card, label):
+    """The lane kernel's damped one-launch solve (the main path's mode on
+    the lane route) alone on a run's first undamped band, right-hand side
+    and lambda (``first_kernel_band``), in f32 and f64.
+    ``banded_spd_cuda(band, rhs, lam=lam)`` must equal, torch.equal on x
+    and the fail flags, ``solver._rescued`` over the plain version
+    (``banded_spd_reference`` on copies of the band damped by lambda, in
+    f32 again by the floored lambda), with lambda -1 on lane 1, NaN on
+    lane 2 (both factors fail) and -2 max|diagonal| on lanes 3 and B - 1
+    (the raw factor fails; in f32 the in-kernel retry solves them again):
+    the raw factor must fail on lanes 2, 3 and B - 1, and the f64 flags
+    must be the raw ones (no retry). Then the launch at the run's own
+    lambdas (CUDA events, median of REPS) beside the undamped launch on
+    the band damped beforehand, the bound, the dense library on that band
+    and the kernel's backward error there. Returns the f32 record."""
+    import torch
+
+    from ezpz_tpu_torch.ops import banded, banded_spd
+    from ezpz_tpu_torch.solver import _rescued
+
+    B, n, bwp1 = band.shape
+    bw = bwp1 - 1
+    rec = None
+    for dtype in (torch.float32, torch.float64):
+        Ab, b, lam_run = band.to(dtype), rhs.to(dtype), lam.to(dtype)
+        lam_t = lam_run.clone()
+        lam_t[1], lam_t[2] = -1.0, float("nan")
+        for lane in (3, B - 1):
+            lam_t[lane] = -2.0 * Ab[lane, :, bw].abs().max()
+        x, fail = banded_spd.banded_spd_cuda(Ab, b, lam=lam_t)
+        raw = banded_spd.banded_spd_cuda(damped_copy(Ab, lam_t), b)[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xr, failr = _rescued(lambda l: banded.banded_spd_reference(damped_copy(Ab, l), b),
+                             lam_t, Ab[..., bw])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        bits = torch.equal(x, xr) and torch.equal(fail, failr)
+        raw_lanes = raw.nonzero().flatten().tolist()
+        resolved = (raw & ~fail).nonzero().flatten().tolist()
+        engaged = {2, 3, B - 1} <= set(raw_lanes)
+        retried = dtype == torch.float64 or not bool(fail[3]) or not bool(fail[B - 1])
+        print(f"{label} damped one launch {dtype}: B={B} n={n} bw={bw}: bit-equal to "
+              f"_rescued over the plain version {bits} ({plain_ms!r} ms once, host clock); "
+              f"raw factor failed on lanes {raw_lanes}, the launch's fail flags "
+              f"{fail.nonzero().flatten().tolist()}, lanes the in-kernel retry re-solved "
+              f"{resolved}", flush=True)
+        if not bits or not engaged or (dtype == torch.float64 and not torch.equal(fail, raw)):
+            err = float((x - xr).nan_to_num().abs().max())
+            raise SystemExit(f"chip_smoke: {label} damped one launch differs from _rescued "
+                             f"over the plain version or its retry was not exercised "
+                             f"({dtype}: max|dx|={err!r}, fails {fail.nonzero().flatten()} / "
+                             f"{failr.nonzero().flatten()}, raw {raw_lanes})")
+        if not retried:
+            raise SystemExit(f"chip_smoke: {label} in-kernel retry solved neither lane 3 nor "
+                             f"lane {B - 1} ({dtype})")
+        pre = damped_copy(Ab, lam_run)
+        xk, fk = banded_spd.banded_spd_cuda(Ab, b, lam=lam_run)
+        if bool(fk.any()):
+            raise SystemExit(f"chip_smoke: {label} damped one launch failed "
+                             f"{int(fk.sum())} of the run's lanes ({dtype})")
+        kms = events_ms(lambda: banded_spd.banded_spd_cuda(Ab, b, lam=lam_run))
+        ums = events_ms(lambda: banded_spd.banded_spd_cuda(pre, b))
+        lx, lib_ms = dense_library(pre, b)
+        kbe, lbe = band_backward_error(pre, xk, b), band_backward_error(pre, lx, b)
+        del lx
+        bound, bound_by = banded_bound_ms(B, n, bw, Ab.element_size())
+        print(f"{label} damped one launch {dtype}: {kms!r} ms per call (CUDA events, median "
+              f"of {REPS}; the undamped launch on the band damped beforehand {ums!r} ms), "
+              f"{kms * 1e6 / (n * B)!r} ns per row per lane; dense cholesky_ex + "
+              f"cholesky_solve {lib_ms!r} ms; backward error kernel {kbe!r}, library "
+              f"{lbe!r}; bound {bound!r} ms ({bound_by}, {100 * bound / kms:.2f}% of the "
+              f"kernel's time); card: {card}", flush=True)
+        if kbe > BACKWARD_TOL[str(dtype)]:
+            raise SystemExit(f"chip_smoke: {label} damped one launch's backward error "
+                             f"{kbe!r} exceeds {BACKWARD_TOL[str(dtype)]!r}")
+        if rec is None:
+            rec = dict(ms=kms, undamped_ms=ums, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by=bound_by, library_ms=lib_ms, resolved=len(resolved))
     return rec
 
 

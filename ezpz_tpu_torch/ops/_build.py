@@ -320,10 +320,12 @@ def load_library() -> ctypes.CDLL:
     lib.ezpz_small_shape.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.ezpz_cuda_error_string.restype = ctypes.c_char_p
     lib.ezpz_cuda_error_string.argtypes = [i]
-    for name in ("ezpz_banded_spd", "ezpz_banded_spd_lanes"):
-        getattr(lib, name).restype = i
-        getattr(lib, name).argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
-                                       i, i, i, i, p]     # B, n, bw, m, stream
+    lib.ezpz_banded_spd.restype = i
+    lib.ezpz_banded_spd.argtypes = [i, p, p, p, p, p,  # f64, band, rhs, factor, x, fail
+                                    i, i, i, i, p]     # B, n, bw, m, stream
+    lib.ezpz_banded_spd_lanes.restype = i
+    lib.ezpz_banded_spd_lanes.argtypes = [i, p, p, p, p, p, p,  # f64, band, lam, rhs, factor, x,
+                                          i, i, i, i, p]        # fail; B, n, bw, m, stream
     lib.ezpz_banded_lanes_capacity.restype = i
     lib.ezpz_banded_lanes_capacity.argtypes = [i]  # k
     lib.ezpz_banded_lanes_smem_bytes.restype = i

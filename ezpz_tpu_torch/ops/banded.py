@@ -181,10 +181,11 @@ def _perm_tables(perm):
     return p, np.argsort(p)
 
 
-def _permuted_solve(band, b, fwd, inv):
-    """``banded_spd_solve`` on ``band`` in an ordering and ``b`` in the
-    variables' order; x returned in the variables' order."""
-    x_p, fail = banded_spd_solve(band, b if fwd is None else b[:, fwd])
+def _permuted_solve(band, b, fwd, inv, solve=None):
+    """``solve`` (``banded_spd_solve`` when None) on ``band`` in an
+    ordering and ``b`` in the variables' order; x returned in the
+    variables' order."""
+    x_p, fail = (solve or banded_spd_solve)(band, b if fwd is None else b[:, fwd])
     return (x_p, fail) if inv is None else (x_p[:, inv], fail)
 
 
@@ -210,11 +211,19 @@ class BandRoute:
         tables and the ordering's (None for the identity)."""
         return on_device(self._by_device, dev, self._make)
 
-    def solve(self, band, b):
+    def solve(self, band, b, lam=None):
         """``banded_spd_solve`` on a band (B, n, bw+1) in the route's
-        ordering, with ``b`` (B, n) and x in the variables' order."""
+        ordering, with ``b`` (B, n) and x in the variables' order. Given
+        ``lam`` (B,), a band that ``damps_in_one_launch`` is solved damped
+        by it in one launch of the lane kernel (``banded_spd.banded_spd_cuda``'s
+        ``lam``)."""
         _entries, _gather, fwd, inv = self.tables(band.device)
-        return _permuted_solve(band, b, fwd, inv)
+        if lam is None:
+            return _permuted_solve(band, b, fwd, inv)
+        return _permuted_solve(band, b, fwd, inv,
+                               lambda a, r: banded_spd.banded_spd_cuda(a, r, lam=lam))
+
+    damps_in_one_launch = staticmethod(banded_spd.damps_in_one_launch)
 
 
 def make_banded_spd(n: int, bw: int, perm=None):

@@ -19,7 +19,11 @@ the window in dynamic shared memory) up to
 band past that the general-width kernel (window and running sums in
 device memory). The wrapper allocates the factor's scratch (and the
 general kernel's running sums), launches on the current stream and raises
-on a refused launch.
+on a refused launch. The lane kernel also takes the LM step's damped solve
+in one launch (``lam``; ``damps_in_one_launch`` says which bands): it adds
+each lane's lambda to the diagonal as it loads the band, and in float32
+re-solves only the lanes whose factor failed with the floored lambda of
+``solver._rescued``.
 """
 
 from __future__ import annotations
@@ -73,14 +77,27 @@ def route_for(B: int, bw: int, itemsize: int) -> str:
     return "lanes" if cap is not None and B >= LANES_MIN_BATCH[cap] else "warp"
 
 
-def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
+def damps_in_one_launch(Ab: torch.Tensor) -> bool:
+    """Whether ``banded_spd_cuda`` takes a ``lam`` for the band ``Ab`` (B,
+    n, bw+1): on a CUDA device, on the lane kernel's route."""
+    B, _n, bwp1 = Ab.shape
+    return Ab.device.type == "cuda" and route_for(B, bwp1 - 1, Ab.element_size()) == "lanes"
+
+
+def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor, lam: torch.Tensor = None):
     """The kernel on CUDA ``Ab`` (B, n, bw+1) and ``b`` (B, n) or (B, n, m),
     both float32 or both float64: returns ``(x, fail (B,) bool)`` as
     ``ops.banded.banded_spd_reference`` does, by the kernel
     ``route_for(B, bw, itemsize)`` names. Raises when the inputs are not on
     a CUDA device, ``nvcc`` or the build fails, or the launch is refused
     (the dynamic-width kernel's shared-memory attribute or occupancy query
-    included)."""
+    included).
+
+    Given ``lam`` (B,) of the band's dtype, on the lane kernel's route
+    alone (``damps_in_one_launch``), the band is solved with ``lam`` added
+    to its diagonal column (``Ab`` is not written); in float32 a lane whose
+    factor fails is solved again with ``max(lam, 1e-6 * max|diagonal|)``
+    (the undamped diagonal): ``solver._rescued``'s answer in one launch."""
     if Ab.device.type != "cuda" or b.device != Ab.device:
         raise ValueError(f"banded_spd_cuda takes CUDA tensors on one device, got "
                          f"{Ab.device} and {b.device}")
@@ -93,11 +110,19 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
     B, n, bwp1 = Ab.shape
     bw = bwp1 - 1
     m = 1 if b.dim() == 2 else b.shape[2]
+    if lam is not None and (lam.shape != (B,) or lam.dtype != Ab.dtype
+                            or lam.device != Ab.device):
+        raise ValueError(f"lam must be ({B},) {Ab.dtype} on {Ab.device}, got "
+                         f"{tuple(lam.shape)} {lam.dtype} on {lam.device}")
     fail = torch.zeros((B,), dtype=torch.bool, device=Ab.device)
     if B == 0 or n == 0 or m == 0:
         return torch.zeros_like(b), fail
     route = route_for(B, bw, Ab.element_size())
+    if lam is not None and not damps_in_one_launch(Ab):
+        raise ValueError(f"a damped solve takes the lane kernel alone, not the {route} "
+                         f"route (B={B}, bw={bw})")
     ab_k, rhs_k = Ab.contiguous(), b.reshape(B, n, m).contiguous()
+    lam_k = None if lam is None else lam.contiguous()
     if route == "lanes":
         # The lane kernel's factor records: (n + bw, bw + 2, B rounded up
         # to 32), lane fastest.
@@ -120,10 +145,14 @@ def banded_spd_cuda(Ab: torch.Tensor, b: torch.Tensor):
             err = lib.ezpz_banded_spd_dyn(f64, ab_k.data_ptr(), rhs_k.data_ptr(),
                                           lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(), B,
                                           n, bw, m, stream)
+        elif route == "lanes":
+            lam_p = None if lam_k is None else lam_k.data_ptr()
+            err = lib.ezpz_banded_spd_lanes(f64, ab_k.data_ptr(), lam_p, rhs_k.data_ptr(),
+                                            lb_k.data_ptr(), x_k.data_ptr(), fail.data_ptr(),
+                                            B, n, bw, m, stream)
         else:
-            launch = lib.ezpz_banded_spd_lanes if route == "lanes" else lib.ezpz_banded_spd
-            err = launch(f64, ab_k.data_ptr(), rhs_k.data_ptr(), lb_k.data_ptr(),
-                         x_k.data_ptr(), fail.data_ptr(), B, n, bw, m, stream)
+            err = lib.ezpz_banded_spd(f64, ab_k.data_ptr(), rhs_k.data_ptr(), lb_k.data_ptr(),
+                                      x_k.data_ptr(), fail.data_ptr(), B, n, bw, m, stream)
     if err != 0:
         raise RuntimeError(f"banded_spd kernel launch failed ({route}, bw={bw}): cudaError "
                            f"{err} ({_build.error_string(lib, err)})")

@@ -220,16 +220,33 @@ def damped_band_solve(band, lam, b, route: BandRoute):
     band=route)``): lambda is added to the band's diagonal column alone, the
     values the dense route's factor sees (its ``lam * I`` adds exact zeros
     off the diagonal), the f32 retry is the same, and the band is solved by
-    ``route.solve`` (b into the route's ordering, x back)."""
+    ``route.solve`` (b into the route's ordering, x back).
+
+    A band that ``route.damps_in_one_launch`` (on the card, on the lane
+    kernel's route) is solved in one launch: the kernel damps the diagonal
+    as it loads it and re-solves only the lanes whose factor failed
+    (``lm.band_damped`` counts these launches). Any other band takes
+    ``damped_band_composed``, the answer that launch is held to bit for
+    bit."""
     with tracing.span("ezpz.lm.damped_solve"):
-        bw = band.shape[-1] - 1
+        if route.damps_in_one_launch(band):
+            tracing.count("lm.band_damped")
+            return route.solve(band, b, lam=lam)
+        return damped_band_composed(band, lam, b, route)
 
-        def solve(lam_):
-            damped = band.clone()
-            damped[..., bw] += lam_[:, None]
-            return route.solve(damped, b)
 
-        return _rescued(solve, lam, band[..., bw])
+def damped_band_composed(band, lam, b, route: BandRoute):
+    """``damped_band_solve`` composed of undamped solves: a copy of the
+    band with lambda added to its diagonal column, solved by
+    ``route.solve``, and ``_rescued``'s f32 retry on a second copy."""
+    bw = band.shape[-1] - 1
+
+    def solve(lam_):
+        damped = band.clone()
+        damped[..., bw] += lam_[:, None]
+        return route.solve(damped, b)
+
+    return _rescued(solve, lam, band[..., bw])
 
 
 def _damped_step(system: CompiledSystem, x, lam, spd, pars=None, rhs=None):

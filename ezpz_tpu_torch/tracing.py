@@ -27,7 +27,9 @@ nothing, at the cost of a flag check. Span names are constant strings,
 copies of host data (``ops.device_cache.to_device``): a topology's tables
 once a device (``ops.device_cache.on_device``), and the LM loops' scalars
 each solve; ``lm.band_steps`` the band tier's JtJ assemblies, one an LM
-trip.
+trip; ``lm.band_damped`` the band tier's damped solves made in one launch
+of the lane kernel (``solver.damped_band_solve`` on the card), one a trip
+on that route.
 ``LOCK`` also guards the kernel wrappers' ``LAUNCHES`` counters
 (``ops._build.count_launches``): one lock for every counter of the port.
 """

@@ -16,6 +16,11 @@ permutation, whose plan is an RCM ordering (``perm`` not None), so that
 the permuted band plan and b's and x's permutations are exercised. Modes:
 ``solve_lm`` in f64 and on the f32 twin (the f32 retry), and
 ``solve_lm_mixed``. B = 8 lanes moved by seeded N(0, 0.05).
+
+On the CPU ``damped_band_solve`` is ``damped_band_composed`` (the card's
+one-launch path is held to it in ``tests/test_torch_cuda.py``), and a
+``BatchSolver`` band-tier solve keeps the dense witness's flags,
+iterations and x.
 """
 
 import dataclasses
@@ -24,13 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from ezpz_tpu_torch import fixtures
-from ezpz_tpu_torch.batch import _pick_spd
+from ezpz_tpu_torch import fixtures, tracing
+from ezpz_tpu_torch.batch import BatchSolver, _pick_spd
 from ezpz_tpu_torch.config import Config
 from ezpz_tpu_torch.models.compiled import compile_system
 from ezpz_tpu_torch.ops import banded
-from ezpz_tpu_torch.solver import (damped_band_solve, damped_spd_solve, solve_lm,
-                                   solve_lm_mixed)
+from ezpz_tpu_torch.solver import (damped_band_composed, damped_band_solve, damped_spd_solve,
+                                   solve_lm, solve_lm_mixed)
 
 B = 8
 
@@ -109,6 +114,50 @@ def test_damped_band_solve_takes_the_f32_retry(name):
     assert torch.equal(d, want_d) and torch.equal(fail, want_fail)
     assert fail.tolist() == [k == 2 for k in range(B)]
     assert bool((d[1] != 0).any()) and bool((d[2] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["rect_chain(8)", "rect_chain(8) relabelled"])
+def test_damped_band_solve_on_the_cpu_is_the_composition(name, dtype):
+    """On the CPU ``damped_band_solve`` launches nothing and counts no
+    ``lm.band_damped``: it is ``damped_band_composed``, torch.equal, with
+    the lanes of the f32 retry (lambda -1 and NaN) among them."""
+    system, x0, route, (_perm, _bw) = _topology(name)
+    sys_t = system.astype(dtype)
+    rng = np.random.default_rng(9)
+    x = torch.as_tensor(x0 + rng.normal(0.0, 0.05, (B, len(x0))))
+    _r, band, jtr, _d = sys_t.normal_equations(x.to(dtype), band=route)
+    lam = torch.full((B,), 1e-3, dtype=dtype)
+    lam[1], lam[2] = -1.0, float("nan")
+    before = tracing.counts().get("lm.band_damped", 0)
+    d, fail = damped_band_solve(band, lam, -jtr, route)
+    assert tracing.counts().get("lm.band_damped", 0) == before
+    want_d, want_fail = damped_band_composed(band, lam, -jtr, route)
+    assert torch.equal(d, want_d) and torch.equal(fail, want_fail)
+    assert bool(fail[2]) and not bool(fail[0])
+
+
+@pytest.mark.parametrize("name", ["rect_chain(8)", "rect_chain(8) relabelled"])
+def test_batch_solver_band_tier_keeps_the_dense_witness(name):
+    """A mixed ``BatchSolver`` on the band tier answers as
+    ``solve_lm_mixed`` with the dense JtJ and ``make_banded_spd`` (the dense
+    witness): iterations, every flag and x torch.equal."""
+    system, x0, route, (perm, bw) = _topology(name)
+    solver = BatchSolver(system, Config(), precision="mixed", device="cpu")
+    assert isinstance(solver.spd, banded.BandRoute)
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(x0 + rng.normal(0.0, 0.05, (B, len(x0))))
+    got = solver.solve(x)
+    c = Config()
+    want = solve_lm_mixed(system, system.astype(torch.float32), x, c.max_iterations,
+                          c.residual_tolerance, c.step_tolerance, c.initial_lambda,
+                          spd=banded.make_banded_spd(system.n_vars, bw, perm))
+    assert torch.equal(got.iterations, want.iterations)
+    assert torch.equal(got.converged, want.converged)
+    assert torch.equal(got.degenerate, want.deg)
+    assert torch.equal(got.x, want.x)
+    assert torch.equal(got.satisfied, system.satisfaction(want.x, want.residual))
+    assert bool(got.converged.all())
 
 
 def test_band_plan_refuses_entries_outside_the_band():

@@ -10,7 +10,8 @@
   (three LM steps a lane) makes ``H2D_CHAIN64``, the count the
   benchmark's ``chain64.fleet`` reads a batch on the card.
   ``lm.band_steps`` counts one a trip of a band-tier solve and none on the
-  dense tier or the fused kernel.
+  dense tier or the fused kernel; ``lm.band_damped`` (the card's one-launch
+  damped solves) counts none on the CPU.
 * ``ops._build.count_launches`` still adds to the wrappers' ``LAUNCHES``,
   under the counters' one lock.
 """
@@ -172,6 +173,14 @@ def test_band_steps_count_the_band_tiers_trips():
         assert solver.spd is spd_solve and solver.kernel_ok == bool(kw)
         steps, res = _band_steps(lambda: solver.solve(xb, pars))
         assert steps == 0 and bool(res.converged.all()), kw
+
+
+def test_band_damped_counts_nothing_on_the_cpu():
+    solver, x, pars = _chain(8, 3)
+    damped = tracing.counts().get("lm.band_damped", 0)
+    steps, res = _band_steps(lambda: solver.solve(x, pars))
+    assert steps > 0 and bool(res.converged.all())
+    assert tracing.counts().get("lm.band_damped", 0) == damped
 
 
 def test_count_launches_adds_under_the_counters_lock():
